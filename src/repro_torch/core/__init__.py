@@ -1,0 +1,12 @@
+"""MAPSIN join engine — the paper's core contribution, on one device."""
+from repro_torch.core.bgp import (  # noqa: F401
+    ExecConfig, execute_local, query_traffic, rows_set,
+)
+from repro_torch.core.mapsin import Bindings, mapsin_step, multiway_step, scan_pattern  # noqa: F401
+from repro_torch.core.oracle import execute_oracle  # noqa: F401
+from repro_torch.core.planner import (  # noqa: F401
+    Caps, LogicalPlan, PhysicalPlan, PlanStep, compile_plan, explain,
+    quantize_cap,
+)
+from repro_torch.core.rdf import Dictionary, Pattern, pack3, pattern_from, unpack3  # noqa: F401
+from repro_torch.core.triple_store import TripleStore, build_store, store_from_numpy  # noqa: F401

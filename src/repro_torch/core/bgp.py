@@ -1,0 +1,384 @@
+"""BGP executor over the planner's ``PhysicalPlan`` IR, on one device.
+
+Planning lives in ``core/planner.py``: ``compile_plan`` turns a pattern
+list into a ``PhysicalPlan`` whose steps each carry their own operator
+(``scan | mapsin | multiway | reduce_side``) and static capacities
+(``Caps``). ``execute_local`` consumes a plan; passing a raw pattern
+sequence compiles one on the spot. ``ExecConfig`` is runtime-only: kernel
+``impl`` and the ``reorder`` escape hatch.
+
+Execution model: the cascade — the first-pattern scan plus every step — is
+one closure per (plan, cfg), cached on the store, run eagerly on the
+store's device. The default path never syncs the host: every count stays
+a device tensor, and the per-step overflow counters ride back as one
+small tensor. Host syncs happen only on the opt-in ``stats=`` path, which
+records the actual row counts, the per-step overflow and the measured
+probe->region fan-out that feeds ``query_traffic_actual``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import mapsin as ms
+from repro_torch.core import reduce_side as rs
+from repro_torch.core.plan import make_plan, probe_ranges, row_range
+from repro_torch.core.planner import (  # noqa: F401  (re-exported API surface)
+    ALL_OPERATORS, Caps, LogicalPlan, PhysicalPlan, PlanStep, _host_keys,
+    compile_plan, explain, order_patterns, pattern_cardinality, quantize_cap)
+from repro_torch.core.rdf import INF_KEY
+from repro_torch.core.triple_store import (TripleStore, _shard_sorted,
+                                           range_intersects_region)
+from repro_torch.kernels.ops import IMPLS
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecConfig:
+    """Runtime-only knobs. ``impl="kernel"`` runs the hand-written CUDA
+    kernels on the card (their plain versions on the CPU); ``"torch"``
+    forces the plain versions everywhere."""
+    impl: str = "kernel"         # kernel | torch
+    reorder: bool = True         # False = execute patterns as given
+
+    def __post_init__(self):
+        if self.impl not in IMPLS:
+            raise ValueError(f"ExecConfig.impl must be one of {IMPLS}, "
+                             f"got {self.impl!r}")
+
+
+def as_plan(store: TripleStore | None, query, mode: str = "mapsin",
+            cfg: ExecConfig = ExecConfig(), caps: Caps = Caps(),
+            route_shards: int = 10) -> PhysicalPlan:
+    """Resolve a query argument (PhysicalPlan | LogicalPlan | patterns)
+    into a PhysicalPlan."""
+    if isinstance(query, PhysicalPlan):
+        return query
+    return compile_plan(store, query, caps, mode=mode, reorder=cfg.reorder,
+                        route_shards=route_shards)
+
+
+# ---------------------------------------------------------------------------
+# Traffic accounting (bytes shipped by the collectives; static formulas)
+# ---------------------------------------------------------------------------
+
+
+def step_traffic_bytes(step: PlanStep, mode: str, num_shards: int,
+                       n_vars_before: int) -> int:
+    """Global bytes crossing the interconnect for one step (padding
+    included), from the step's OWN caps.
+
+    Modes:
+      mapsin         — broadcast GET: probe keys and match counts are
+                       all-gathered, matches reduce-scattered home.
+      mapsin_routed  — point-to-point GET: each probe travels to its owner
+                       shard once and its matches travel back once.
+      reduce         — shuffle BOTH relations (repartition join).
+    """
+    s, b = num_shards, step.caps.out_cap
+    if s == 1 or step.kind == "scan":
+        return 0
+    cap = (step.caps.row_cap if step.kind == "multiway"
+           else step.caps.probe_cap)
+    if step.kind == "reduce_side":
+        mode = "reduce"     # a hybrid plan's reduce step shuffles whatever
+                            # the comparison mode prices the OTHER steps at
+    if mode == "mapsin":
+        keys = s * b * (8 + 8 + 24) * (s - 1)          # all_gather lo/hi/filters
+        counts = s * (s * b) * 4 * (s - 1)             # all_gather counts
+        matches = s * (s * b) * cap * 8                # psum_scatter ring pass
+        return keys + counts + matches
+    if mode == "mapsin_routed":
+        keys = s * b * (8 + 8 + 4)                     # a2a probe records
+        matches = s * b * cap * 8                      # a2a matches home
+        return keys + matches
+    # reduce-side: shuffle Omega and the scanned relation in full
+    nv_left = n_vars_before
+    per_rel = s * s * step.caps.bucket_cap * 4         # rows x int32 cols
+    rounds = len(step.patterns)
+    return rounds * (per_rel * (nv_left + 3) + per_rel)  # + validity bytes
+
+
+def query_traffic(query, mode: str, caps: Caps = Caps(),
+                  num_shards: int = 1,
+                  store: TripleStore | None = None) -> int:
+    """Total modeled interconnect bytes for a query (paper's network
+    metric). `query` may be a compiled PhysicalPlan or a pattern list
+    (planned heuristically when no store supplies statistics)."""
+    plan = as_plan(store, query, caps=caps)
+    total = 0
+    seen: set[str] = set()
+    for st in plan.steps:
+        total += step_traffic_bytes(st, mode, num_shards, len(seen))
+        for p in st.patterns:
+            seen.update(p.variables)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Executor
+# ---------------------------------------------------------------------------
+
+
+def _cascade_body(plan: PhysicalPlan, cfg: ExecConfig):
+    """The whole-cascade computation:
+    (keys_spo, keys_ops, scratch) -> (Bindings, per-step overflow).
+
+    Each step runs the operator the planner chose for it, at the caps the
+    plan embeds. The second output is the (n_steps,) CUMULATIVE overflow
+    counter after each step, so overflow can be localized to its step
+    without the instrumented run's host syncs.
+    """
+    steps = plan.steps
+    first = steps[0].patterns[0]
+    first_vars = make_plan(first, ()).out_var_names
+
+    def fn(keys_spo, keys_ops, scratch):
+        keys_of = lambda pat, dom: (keys_spo if make_plan(pat, dom).index == 0
+                                    else keys_ops)
+        bnd = ms.scan_pattern(first, keys_of(first, ()),
+                              steps[0].caps.out_cap, cfg.impl,
+                              scratch=scratch)
+        ovfs = [bnd.overflow]
+        for st in steps[1:]:
+            c = st.caps
+            if st.kind == "multiway":
+                keys = keys_of(st.patterns[0], bnd.vars)
+                bnd = ms.multiway_step(bnd, st.patterns, keys, c.row_cap,
+                                       c.out_cap, cfg.impl)
+            elif st.kind == "mapsin":
+                keys = keys_of(st.patterns[0], bnd.vars)
+                bnd = ms.mapsin_step(bnd, st.patterns[0], keys,
+                                     c.probe_cap, c.out_cap, cfg.impl)
+            else:                # reduce_side: relation scanned fresh
+                for pat in st.patterns:
+                    bnd = rs.local_reduce_step(bnd, pat, keys_of(pat, ()),
+                                               c.scan_cap, c.probe_cap,
+                                               c.out_cap, cfg.impl)
+            ovfs.append(bnd.overflow)
+        return bnd, torch.stack(ovfs)
+
+    return fn, first_vars
+
+
+def _compiled_cascade(store: TripleStore, plan: PhysicalPlan,
+                      cfg: ExecConfig):
+    """The cascade closure for (plan, cfg), cached on the store."""
+    key = ("cascade", plan, cfg)
+    hit = store.plan_cache.get(key)
+    if hit is None:
+        hit = _cascade_body(plan, cfg)
+        store.plan_cache[key] = hit
+    return hit
+
+
+def _check_plan_mode(query, mode: str):
+    """A compiled plan carries its own operators, so `mode` is only
+    meaningful as a reduce-baseline request: asking for 'reduce' on a
+    mapsin-compiled plan would silently time the wrong engine."""
+    if not isinstance(query, PhysicalPlan):
+        return
+    if mode == "reduce" and any(st.kind in ("mapsin", "multiway")
+                                for st in query.steps):
+        raise ValueError("mode='reduce' with a compiled mapsin plan — "
+                         "operators are baked into the plan; use "
+                         "compile_plan(..., mode='reduce') for the baseline")
+
+
+def execute_local(store: TripleStore, query, mode: str = "mapsin",
+                  cfg: ExecConfig = ExecConfig(), caps: Caps = Caps(),
+                  stats: list | None = None,
+                  route_shards: int | None = None) -> ms.Bindings:
+    """Single-shard execution on the store's device.
+
+    `query` is a compiled ``PhysicalPlan`` or a raw pattern sequence
+    (compiled cost-based on the spot — cached on the store). The default
+    path runs the cached cascade with no host sync; the returned Bindings
+    carries ``step_overflow``, the cumulative overflow after each step.
+    When `stats` is a list (opt-in instrumentation, off the hot path), the
+    cascade runs stepwise and appends per-step dicts with actual row
+    counts, the per-step overflow and the measured probe->region fan-out.
+    An explicit `route_shards` overrides the plan's measurement size."""
+    _check_plan_mode(query, mode)
+    plan = as_plan(store, query, mode, cfg, caps,
+                   route_shards=10 if route_shards is None else route_shards)
+    if (route_shards is not None and isinstance(query, PhysicalPlan)
+            and plan.route_shards != route_shards):
+        plan = dataclasses.replace(plan, route_shards=route_shards)
+    if stats is not None:
+        return _execute_local_instrumented(store, plan, cfg, stats)
+    fn, first_vars = _compiled_cascade(store, plan, cfg)
+    scratch = ms.Bindings.empty(first_vars, plan.steps[0].caps.out_cap,
+                                store.device)
+    bnd, step_ovf = fn(store.flat_keys(0), store.flat_keys(1), scratch)
+    bnd.step_overflow = step_ovf
+    return bnd
+
+
+def _route_splits(store: TripleStore, index: int, s: int) -> np.ndarray:
+    """Region boundaries for a hypothetical `s`-shard layout of the index:
+    the stored splits when the store is already sharded that way, otherwise
+    exactly what build_store would pick (same _shard_sorted rule)."""
+    if s == store.num_shards:
+        return store.splits(index).cpu().numpy()
+    ck = ("route_splits", index, s)
+    if ck not in store.plan_cache:
+        keys = _host_keys(store, index)
+        keys = keys[keys < INF_KEY]
+        _, splits, _ = _shard_sorted(keys, s)
+        store.plan_cache[ck] = splits
+    return store.plan_cache[ck]
+
+
+def _probe_fanout(store: TripleStore, plan, bnd: ms.Bindings, s: int,
+                  whole_row: bool = False) -> tuple[int, int, int]:
+    """Measured routing fan-out if each probe were routed only to shards
+    whose key range it intersects. Returns (total deliveries, max
+    per-region load, max range-entry count per probe)."""
+    lo, hi = (row_range if whole_row else probe_ranges)(plan, bnd.table)
+    lo, hi = lo.cpu().numpy(), hi.cpu().numpy()
+    valid = bnd.valid.cpu().numpy()
+    splits = _route_splits(store, plan.index, s)
+    hits = range_intersects_region(lo[:, None], hi[:, None],
+                                   splits[None, :-1], splits[None, 1:])
+    per_region = hits[valid].sum(axis=0)
+    keys = _host_keys(store, plan.index)
+    lens = (np.searchsorted(keys, hi[valid])
+            - np.searchsorted(keys, lo[valid]))
+    return (int(per_region.sum()), int(per_region.max(initial=0)),
+            int(lens.max(initial=0)))
+
+
+def _execute_local_instrumented(store: TripleStore, plan: PhysicalPlan,
+                                cfg: ExecConfig, stats: list):
+    steps = plan.steps
+    keys_of = lambda pat, dom: store.flat_keys(make_plan(pat, dom).index)
+    s_route = plan.route_shards
+    t0 = time.perf_counter()
+    bnd = ms.scan_pattern(steps[0].patterns[0],
+                          keys_of(steps[0].patterns[0], ()),
+                          steps[0].caps.out_cap, cfg.impl)
+    ovf_prev = int(bnd.overflow)
+    ovf_cum = [ovf_prev]
+    t1 = time.perf_counter()
+    # per-step wall stamps (t0/t1 on the perf_counter clock, wall_s the
+    # delta) ride the stats dicts only on this opt-in path
+    stats.append({"kind": "scan", "n_in": 0, "n_out": int(bnd.count()),
+                  "nv": len(bnd.vars), "relation": int(bnd.count()),
+                  "n_patterns": 1, "overflow": ovf_prev,
+                  "t0": t0, "t1": t1, "wall_s": t1 - t0})
+    for st in steps[1:]:
+        c = st.caps
+        t0 = time.perf_counter()
+        n_in, nv_in = int(bnd.count()), len(bnd.vars)
+        deliveries = max_region = probe_len = 0
+        if st.kind == "multiway":
+            keys = keys_of(st.patterns[0], bnd.vars)
+            plan0 = make_plan(st.patterns[0], bnd.vars)
+            deliveries, max_region, probe_len = _probe_fanout(
+                store, plan0, bnd, s_route, whole_row=True)
+            bnd = ms.multiway_step(bnd, st.patterns, keys, c.row_cap,
+                                   c.out_cap, cfg.impl)
+        elif st.kind == "mapsin":
+            keys = keys_of(st.patterns[0], bnd.vars)
+            plan0 = make_plan(st.patterns[0], bnd.vars)
+            deliveries, max_region, probe_len = _probe_fanout(
+                store, plan0, bnd, s_route)
+            bnd = ms.mapsin_step(bnd, st.patterns[0], keys, c.probe_cap,
+                                 c.out_cap, cfg.impl)
+        else:                    # reduce_side re-scans with an empty domain
+            for pat in st.patterns:
+                keys = keys_of(pat, ())
+                bnd = rs.local_reduce_step(bnd, pat, keys, c.scan_cap,
+                                           c.probe_cap, c.out_cap, cfg.impl)
+        n_out = int(bnd.count())         # host sync: the step's work is done
+        t1 = time.perf_counter()         # before the relation-scan extras
+        rel = 0
+        for pat in st.patterns:
+            r = ms.scan_pattern(pat, keys_of(pat, ()), c.scan_cap, cfg.impl)
+            rel += int(r.count())
+        ovf_now = int(bnd.overflow)
+        stats.append({"kind": st.kind, "n_in": n_in,
+                      "n_out": n_out, "nv": nv_in,
+                      "relation": rel, "n_patterns": len(st.patterns),
+                      "deliveries": deliveries, "route_shards": s_route,
+                      "deliveries_max_region": max_region,
+                      "probe_len_max": probe_len,
+                      "overflow": ovf_now - ovf_prev,
+                      "t0": t0, "t1": t1, "wall_s": t1 - t0})
+        ovf_prev = ovf_now
+        ovf_cum.append(ovf_now)
+    bnd.step_overflow = torch.tensor(ovf_cum, dtype=torch.int32,
+                                     device=store.device)
+    return bnd
+
+
+def query_traffic_actual(stats: list, mode: str, num_shards: int,
+                         n_triples: int = 0) -> dict:
+    """Data-movement bytes from ACTUAL row counts (vs the static-capacity
+    model in query_traffic). Two components, mirroring the paper's setting:
+
+    network — what crosses the interconnect per join step:
+      mapsin_routed — each input mapping's 20 B probe record travels once
+                      per region its key range intersects (the measured
+                      "deliveries") and each match comes back once (12 B);
+      mapsin        — broadcast GET: 44 B probe records x (S-1), matches
+                      once;
+      reduce        — Omega + the (already filtered) relation are shuffled.
+
+    scanned — storage bytes read to produce the step's input:
+      reduce        — no index: every pattern forces a full pass over the
+                      dataset in the map phase;
+      mapsin        — index GETs: ~log2(N) binary-search touches per probe
+                      plus the matched entries only.
+    """
+    s = num_shards
+    net = 0
+    scanned = 0
+    routed = broadcast = 0                 # probe records: routed vs x(S-1)
+    logn = max(math.ceil(math.log2(max(n_triples, 2))), 1)
+    for st in stats:
+        rounds = 1 if st["kind"] == "multiway" else st["n_patterns"]
+        if st["kind"] == "scan":
+            if mode == "reduce":
+                scanned += n_triples * 8          # full pass, no index
+            else:
+                scanned += st["n_out"] * 8 + logn * 8  # index range scan
+            continue
+        # a planner-selected reduce_side step shuffles and re-scans its
+        # relation whatever the comparison mode
+        if st["kind"] == "reduce_side" or mode not in ("mapsin",
+                                                       "mapsin_routed"):
+            row_l = st["nv"] * 4 + 4
+            if s > 1:
+                net += st["n_patterns"] * (st["n_in"] * row_l
+                                           + st["relation"] * 16)
+            scanned += st["n_patterns"] * n_triples * 8
+            continue
+        rec_routed, rec_bcast, match_b = 20, 44, 12
+        deliv = (st["deliveries"] if st.get("route_shards") == s
+                 and "deliveries" in st else st["n_in"])
+        routed += deliv * rec_routed * rounds
+        broadcast += st["n_in"] * rec_bcast * (s - 1) * rounds
+        if mode == "mapsin_routed":
+            if s > 1:
+                net += deliv * rec_routed * rounds + st["n_out"] * match_b
+            scanned += st["n_in"] * rounds * logn * 8 + st["n_out"] * 8
+        else:  # mode == "mapsin" (broadcast probe records)
+            if s > 1:
+                net += (st["n_in"] * rec_bcast * (s - 1) * rounds
+                        + st["n_out"] * match_b)
+            scanned += st["n_in"] * rounds * logn * 8 + st["n_out"] * 8
+    return {"network": net, "scanned": scanned, "total": net + scanned,
+            "probe_bytes_routed": routed, "probe_bytes_broadcast": broadcast}
+
+
+def rows_set(table, valid, n_vars: int) -> set[tuple[int, ...]]:
+    """Materialize valid rows as a python set (host-side, for comparisons)."""
+    t = table.cpu().numpy()[valid.cpu().numpy()]
+    if n_vars == 0:
+        return set([()] if len(t) else [])
+    return set(map(tuple, t[:, :n_vars].tolist()))

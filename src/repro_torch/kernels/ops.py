@@ -1,0 +1,57 @@
+"""Dispatching wrappers around the hand-written kernels, with their launch
+counters.
+
+``impl="kernel"`` (the default) launches the CUDA kernel for a CUDA tensor,
+or raises; for a tensor on the CPU, where the kernel cannot run, it takes
+the plain PyTorch version. ``impl="torch"`` takes the plain version on any
+device. There is no fallback from a failed launch.
+
+``launches`` counts kernel launches by name: each wrapper adds one where it
+launches its kernel and nowhere else, so a run can show that it went
+through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import probe_gather as _pg
+from repro_torch.kernels import searchsorted as _ss
+
+IMPLS = ("kernel", "torch")
+
+launches = {"searchsorted": 0, "probe_gather": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _use_kernel(impl: str, t: torch.Tensor) -> bool:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    return impl == "kernel" and t.device.type != "cpu"
+
+
+def searchsorted(keys: torch.Tensor, queries: torch.Tensor,
+                 impl: str = "kernel") -> torch.Tensor:
+    """Left ranks (int64) of packed int64 queries in sorted packed keys."""
+    if not _use_kernel(impl, keys):
+        return _ss.searchsorted_plain(keys, queries)
+    out = _ss.searchsorted_cuda(keys, queries)
+    launches["searchsorted"] += int(queries.numel() > 0)
+    return out
+
+
+def probe_gather(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                 flt: torch.Tensor, cap: int,
+                 flt_mask: tuple = (False, False, False),
+                 eq_positions: tuple = (), impl: str = "kernel"):
+    """Fused MAPSIN probe on packed int64 keys. Returns (k (B, cap) int64
+    match keys, 0 where invalid; valid (B, cap) bool; missed (B,) int32)."""
+    if not _use_kernel(impl, keys):
+        return _pg.probe_gather_plain(keys, lo, hi, flt, cap, flt_mask,
+                                      eq_positions)
+    out = _pg.probe_gather_cuda(keys, lo, hi, flt, cap, flt_mask, eq_positions)
+    launches["probe_gather"] += int(lo.numel() > 0)
+    return out
