@@ -6,8 +6,11 @@
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device  — the card's name and power limit, torch and CUDA versions;
   2. build   — compile the hand-written CUDA kernels (nvcc, sm_90a);
-  3. kernels — each kernel against its plain PyTorch version on the card,
-               bit-identical on fuzzed inputs, with timings;
+  3. kernels — each kernel against its plain PyTorch version on the card:
+               the index kernels bit-identical on fuzzed inputs, with
+               timings; flash_attention within 2e-5 (float32) / 2e-2
+               (bfloat16) over head dims, GQA groupings, masks and ragged
+               lengths;
   4. main path at full size — LUBM-like data at N universities (default
                400: about 5.17 M triples), every LUBM query through
                parse_bgp -> compile_plan -> execute_local with
@@ -15,7 +18,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
                overflow), the kernels' launch counters checked, and each
                kernel timed at the inputs the main path gives it;
   5. exactness — row sets against the oracle at small scale;
-  6. summary  — the kernels line, the memory line, the card line, and the
+  6. LM serving at full width — yi-6b (32 layers, d 4096, bf16) with
+               weights from the seed: a batch of 4 prompts of 4000 tokens
+               prefilled and 32 tokens decoded greedily through
+               launch/serve.py's loop with attention_impl="kernel" (32
+               flash_attention launches per prefill, none in decode), then
+               teacher-forced against attention_impl="torch"; prefill
+               ms, tokens/s, decode ms/token, peak memory, and the kernel
+               timed on the first layer's own (q, k, v);
+  7. summary  — the kernels line, the memory line, the card line, and the
                result line as the last line.
 It needs a CUDA device and the repository's src/ beside it.
 """
@@ -24,6 +35,7 @@ from __future__ import annotations
 import argparse
 import inspect
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -33,6 +45,11 @@ from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet: 80 GB HBM3 at 3.35 TB/s
+BF16_FLOPS = 989.4e12          # H100 SXM data sheet: dense bf16 tensor cores
+F32_FLOPS = 66.9e12            # H100 SXM data sheet: float32 outside tensor cores
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels_attention.py
+LM_BATCH, LM_PROMPT, LM_DECODE = 4, 4000, 32
+LOGIT_TOL = 5e-2               # max |kernel - torch| <= LOGIT_TOL * max |logits|
 CAPS_MAIN = dict(scan_cap=1 << 20, out_cap=1 << 20, probe_cap=128, row_cap=64)
 CAPS_SMALL = dict(scan_cap=1 << 12, out_cap=1 << 12, probe_cap=128, row_cap=64)
 KERNELS = {
@@ -42,6 +59,9 @@ KERNELS = {
     "probe_gather": dict(route="cuda",
                          source="src/repro_torch/csrc/probe_gather.cu",
                          replaces="src/repro/kernels/probe_gather.py:140"),
+    "flash_attention": dict(route="cuda",
+                            source="src/repro_torch/csrc/flash_attention.cu",
+                            replaces="src/repro/kernels/flash_attention.py:73"),
 }
 
 
@@ -204,6 +224,48 @@ def fuzz_probe_gather(torch, ops, rdf, seed: int) -> dict:
     return {"mismatches": mism, "max_abs_err": 0 if mism == 0 else None}
 
 
+def fuzz_flash_attention(torch, ops, seed: int) -> dict:
+    """float32 and bfloat16; head dims 16..128; (h, g) of (4, 4), (8, 2),
+    (32, 4); causal with sq == skv, causal with sq < skv (end-aligned),
+    non-causal with sq != skv; lengths 1, 63, 65, 1000 and the like (not
+    multiples of the 64-row tile). randn inputs; a case fails above the
+    reference test's tolerance."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    lengths = {"causal sq==skv": [(1, 1), (63, 63), (65, 65), (1000, 1000)],
+               "causal sq<skv": [(1, 65), (63, 1000), (65, 130), (1, 1000)],
+               "non-causal sq!=skv": [(65, 63), (1000, 1), (63, 1000),
+                                      (1, 65)]}
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    cases = misses = 0
+    for dname, dt in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        for e in (16, 32, 64, 128):
+            for h, kvh in ((4, 4), (8, 2), (32, 4)):
+                for mode, sq, skv in ((m, a, c) for m, ps in lengths.items()
+                                      for a, c in ps):
+                    b = 2 if h < 32 else 1
+                    r = lambda *shape: torch.randn(
+                        shape, generator=g, device="cuda").to(dt)
+                    q, k, v = r(b, sq, h, e), r(b, skv, kvh, e), r(b, skv, kvh, e)
+                    causal = mode.startswith("causal")
+                    got = ops.flash_attention(q, k, v, causal, impl="kernel")
+                    want = ops.flash_attention(q, k, v, causal, impl="torch")
+                    err = float((got.float() - want.float()).abs().max())
+                    cases += 1
+                    worst[dname] = max(worst[dname], err)
+                    if not err <= ATTN_TOL[dname]:
+                        misses += 1
+                        log(f"[kernels] flash_attention MISS: {dname} e={e} "
+                            f"h={h} g={kvh} {mode} sq={sq} skv={skv} "
+                            f"max_abs_err={err}")
+    torch.cuda.synchronize()
+    log(f"[kernels] flash_attention: {cases} cases (f32/bf16, e 16..128, "
+        f"(h,g) (4,4)/(8,2)/(32,4), 3 masks, ragged lengths), max_abs_err "
+        f"f32={worst['float32']:.3e} bf16={worst['bfloat16']:.3e}, "
+        f"misses={misses}")
+    return {"mismatches": misses, "max_abs_err": max(worst.values())}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path at full size
 # ---------------------------------------------------------------------------
@@ -275,8 +337,8 @@ def run_main_path(torch, args, failures: list) -> dict:
             ms=wall_ms(torch, lambda: execute_local(store, plan, cfg=kern)))
     main_launches = dict(ops.launches)
     log(f"[main] kernel launches over the main path: {main_launches}")
-    for k, n in main_launches.items():
-        if n <= 0:
+    for k in ("searchsorted", "probe_gather"):
+        if main_launches[k] <= 0:
             failures.append(f"main path never launched the {k} kernel")
 
     ops.reset_launches()
@@ -458,6 +520,181 @@ def check_oracle(torch, failures: list) -> None:
         log(f"[oracle] {label}: {ok}/{len(texts)} queries equal the oracle")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: LM serving at full width
+# ---------------------------------------------------------------------------
+
+
+def sdpa_backends(torch, sdpa) -> str:
+    """Device ms of scaled_dot_product_attention restricted to each fused
+    backend, so the default call's time can be matched to the backend it
+    chose. Informational."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = []
+    for name in ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION"):
+        try:
+            with sdpa_kernel([getattr(SDPBackend, name)]):
+                out.append(f"{name.lower()} {cuda_ms(torch, sdpa, iters=5):.6f} ms")
+        except (RuntimeError, AttributeError) as e:
+            out.append(f"{name.lower()} unavailable ({str(e).splitlines()[0][:60]})")
+    return "; ".join(out)
+
+
+def run_lm_serving(torch, args, failures: list) -> dict:
+    """yi-6b at full width through launch/serve.py's greedy loop with the
+    flash-attention kernel; then kernel against plain, teacher-forced on
+    the kernel run's tokens; then the kernel at the first layer's inputs."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+
+    cfg = get_config("yi-6b")
+    model = build_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = model.init_params(args.seed)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    rng = np.random.RandomState(args.seed)
+    toks = torch.as_tensor(
+        rng.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)),
+        dtype=torch.int32, device="cuda")
+    log(f"[lm] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} x {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_dtype}; "
+        f"{cfg.n_params() / 1e9:.3f} B params; init_params "
+        f"{t_init:.2f} s; prompts {LM_BATCH} x {LM_PROMPT}, {LM_DECODE} "
+        f"decode steps")
+
+    # the main path: counts to 0 just before, read just after
+    ops.reset_launches()
+    ids, t_prefill_first, t_decode = generate(model, params, toks, LM_DECODE)
+    lm_launches = dict(ops.launches)
+    log(f"[lm] main path (launch/serve.py generate): kernel launches "
+        f"{lm_launches}; first prefill {t_prefill_first * 1e3:.3f} ms, "
+        f"decode {t_decode * 1e3:.3f} ms/token")
+    if lm_launches["flash_attention"] != cfg.num_layers:
+        failures.append(f"lm: {lm_launches['flash_attention']} flash_attention "
+                        f"launches in one prefill + decode, want "
+                        f"{cfg.num_layers}")
+
+    # teacher-forced: both impls see the kernel run's tokens
+    model_t = build_model(dataclasses.replace(cfg, attention_impl="torch"),
+                          "cuda")
+    runs = {}
+    for name, m in (("kernel", model), ("torch", model_t)):
+        ops.reset_launches()
+        logits, cache = m.prefill(params, {"tokens": toks})
+        after_prefill = ops.launches["flash_attention"]
+        steps = [logits.float()]
+        for i in range(LM_DECODE - 1):
+            logits, cache = m.decode_step(params, cache, ids[:, i:i + 1].to(torch.int32))
+            steps.append(logits.float())
+        torch.cuda.synchronize()
+        want = cfg.num_layers if name == "kernel" else 0
+        if after_prefill != want or ops.launches["flash_attention"] != want:
+            failures.append(f"lm {name}: flash_attention launches "
+                            f"{after_prefill} after prefill, "
+                            f"{ops.launches['flash_attention']} after decode;"
+                            f" want {want} and {want}")
+        runs[name] = torch.stack(steps)          # (steps, b, vocab)
+        del cache
+    kern, plain = runs["kernel"], runs["torch"]
+    same_ids = bool(torch.equal(kern.argmax(-1).T, ids))
+    scale = float(kern.abs().max())
+    err = (kern - plain).abs().amax(dim=(1, 2))
+    worst = float(err.max())
+    agree = int((plain.argmax(-1).T == ids).sum())
+    log(f"[lm] kernel vs torch, teacher-forced: max|logits| {scale:.4f}; "
+        f"max|delta| prefill {float(err[0]):.5f}, over all "
+        f"prefill + {LM_DECODE - 1} decode steps {worst:.5f} (bound {LOGIT_TOL} x max|logits| = "
+        f"{LOGIT_TOL * scale:.5f}); greedy ids agree {agree}/{ids.numel()}; "
+        f"kernel rerun reproduces the generated ids: {same_ids}")
+    if not (math.isfinite(scale) and worst <= LOGIT_TOL * scale):
+        failures.append(f"lm: kernel and torch logits differ by {worst} "
+                        f"(bound {LOGIT_TOL * scale})")
+    if not same_ids:
+        failures.append("lm: the kernel rerun did not reproduce the ids")
+    del runs, kern, plain, model_t
+
+    # prefill time (median of 3 after a warm-up that records layer 0's args)
+    batch = {"tokens": toks}
+    x = first_call_args(ops, "flash_attention",
+                        lambda: model.prefill(params, batch))
+    t_prefill = wall_ms(torch, lambda: model.prefill(params, batch), runs=3)
+    tok_s = LM_BATCH * LM_PROMPT / (t_prefill / 1e3)
+    log(f"[lm] prefill {LM_BATCH}x{LM_PROMPT}: {t_prefill:.3f} ms (median "
+        f"of 3), {tok_s:.1f} tokens/s; decode {t_decode * 1e3:.3f} "
+        f"ms/token ({LM_BATCH} sequences)")
+    logits, cache = model.prefill(params, batch)
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    profile_query(torch, lambda: model.prefill(params, batch), "lm prefill",
+                  reps=1)
+    profile_query(torch, lambda: model.decode_step(params, cache, tok),
+                  "lm decode step")
+    del cache
+    kernel = time_flash_attention(torch, ops, x)
+    kernel["launches"] = lm_launches["flash_attention"]
+    return dict(kernel=kernel, prefill_ms=t_prefill, tokens_per_s=tok_s,
+                decode_ms=t_decode * 1e3, init_s=t_init)
+
+
+def time_flash_attention(torch, ops, x: dict) -> dict:
+    """The kernel, its plain version and SDPA on layer 0's (q, k, v)."""
+    import torch.nn.functional as F
+    q, k, v, causal = x["q"], x["k"], x["v"], x["causal"]
+    b, sq, h, e = q.shape
+    skv = k.shape[1]
+    got = ops.flash_attention(q, k, v, causal, impl="kernel")
+    want = ops.flash_attention(q, k, v, causal, impl="torch")
+    err = float((got.float() - want.float()).abs().max())
+    dname = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    t_k = cuda_ms(torch, lambda: ops.flash_attention(q, k, v, causal, impl="kernel"),
+                  iters=5, warmup=1)
+    t_p = cuda_ms(torch, lambda: ops.flash_attention(q, k, v, causal, impl="torch"),
+                  iters=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=True)
+    t_l = cuda_ms(torch, sdpa, iters=10)
+    backend = sdpa_backends(torch, sdpa)
+    # what these inputs need: every unmasked (q, k) pair costs 2 flops in
+    # q.k and 2 in p.v per head dim; q, k, v read once, o written once
+    if causal:
+        off = skv - sq
+        pairs = sum(min(max(i + off + 1, 0), skv) for i in range(sq))
+    else:
+        pairs = sq * skv
+    flops = 4 * b * h * e * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    rec = dict(name="flash_attention", **KERNELS["flash_attention"],
+               max_abs_err=err, mismatches=int(not err <= ATTN_TOL[dname]),
+               ms=t_k, plain_ms=t_p, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               library_ms=t_l,
+               shape=f"yi-6b prefill layer 0: q {tuple(q.shape)} k/v "
+                     f"{tuple(k.shape)} {dname} causal={causal}; "
+                     f"{flops:.4e} flops ({t_ops:.6f} ms at the bf16 "
+                     f"tensor peak, {flops / F32_FLOPS * 1e3:.6f} ms at "
+                     f"the f32 peak), {nbytes:.4e} bytes ({t_bytes:.6f} "
+                     f"ms); SDPA by backend: {backend}")
+    log(f"[timing] flash_attention: {rec['shape']}: ms={t_k:.6f} "
+        f"plain_ms={t_p:.6f} bound_ms={rec['bound_ms']:.6f} "
+        f"({rec['bound_by']}) library_ms={t_l:.6f} max_abs_err={err:.3e}")
+    return rec
+
+
+def phase_done(name: str, t0: float) -> float:
+    now = time.perf_counter()
+    log(f"[phase] {name}: {now - t0:.1f} s")
+    return now
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--universities", type=int, default=400)
@@ -483,8 +720,13 @@ def main() -> int:
     log(f"[device] {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
+    # true float32 in the plain versions' matrix products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
     _build.build_all()
-    log(f"[build] nvcc, both kernels in parallel: {_build.build_seconds:.1f} s")
+    log(f"[build] nvcc, {len(_build.SOURCES)} kernels in parallel: "
+        f"{_build.build_seconds:.1f} s")
     for name, text in _build.build_log.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -495,12 +737,14 @@ def main() -> int:
     try:
         fuzz["searchsorted"] = fuzz_searchsorted(torch, ops, rdf, args.seed)
         fuzz["probe_gather"] = fuzz_probe_gather(torch, ops, rdf, args.seed)
+        fuzz["flash_attention"] = fuzz_flash_attention(torch, ops, args.seed)
         for k, rec in fuzz.items():
             if rec["mismatches"]:
                 failures.append(f"{k}: {rec['mismatches']} mismatches "
                                 f"against the plain version")
     except Exception:
         failures.append(f"phase kernels:\n{traceback.format_exc()}")
+    t_phase = phase_done("build + kernels", t_phase)
 
     kernels = []
     torch.cuda.reset_peak_memory_stats()
@@ -515,15 +759,35 @@ def main() -> int:
     except Exception:
         failures.append(f"phase main path:\n{traceback.format_exc()}")
     peak = torch.cuda.max_memory_allocated()
+    t_phase = phase_done("LUBM main path", t_phase)
 
     try:
         check_oracle(torch, failures)
     except Exception:
         failures.append(f"phase exactness:\n{traceback.format_exc()}")
+    t_phase = phase_done("exactness", t_phase)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        lm = run_lm_serving(torch, args, failures)
+        fz = fuzz.get("flash_attention", {"mismatches": 0, "max_abs_err": 0})
+        k = lm["kernel"]
+        k["mismatches"] += fz["mismatches"]
+        k["max_abs_err"] = max(k["max_abs_err"], fz["max_abs_err"])
+        if k["mismatches"]:
+            failures.append("flash_attention: mismatches against the plain "
+                            "version")
+        kernels.append(k)
+    except Exception:
+        failures.append(f"phase LM serving:\n{traceback.format_exc()}")
+    lm_peak = torch.cuda.max_memory_allocated()
+    phase_done("LM serving", t_phase)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"memory: max_memory_allocated {peak} bytes "
-        f"({peak / 2 ** 30:.2f} GiB) over the main path")
+        f"({peak / 2 ** 30:.2f} GiB) over the main path; {lm_peak} bytes "
+        f"({lm_peak / 2 ** 30:.2f} GiB) over LM serving")
     if failures:
         for f in failures:
             print(f"FAILED: {f}", file=sys.stderr)

@@ -1,0 +1,7 @@
+"""Architecture registry — importing this package registers every ported
+config (``base.NOT_PORTED`` lists the JAX package's others)."""
+from repro_torch.configs.base import (  # noqa: F401
+    SHAPES, ModelConfig, ShapeConfig, get_config, list_archs,
+    reduce_for_smoke, runnable_shapes,
+)
+from repro_torch.configs import yi_6b  # noqa: F401

@@ -17,7 +17,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from repro_torch.common import ceil_div
+from repro_torch.common import ceil_div, resolve_device
 from repro_torch.core.rdf import INF_KEY, pack3
 
 SPO, OPS = 0, 1  # index ids (paper Table 3 chooses between them per pattern)
@@ -152,21 +152,12 @@ def _shard_sorted(keys: np.ndarray, num_shards: int) -> tuple[np.ndarray, np.nda
     return padded, splits, counts
 
 
-def _device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "build_store: CUDA is not available on this host; pass "
-            "device='cpu' to run the plain PyTorch path on the CPU")
-    return device
-
-
 def store_from_numpy(keys_spo, keys_ops, splits_spo, splits_ops, counts_spo,
                      counts_ops, n_triples: int, store_version: int = 0,
                      device="cuda") -> TripleStore:
     """A store from index arrays held as numpy (for example another
     implementation's store, so both run over the same index)."""
-    device = _device(device)
+    device = resolve_device(device, "build_store")
     t = lambda a: torch.tensor(np.asarray(a, np.int64), device=device)
     return TripleStore(
         keys_spo=t(keys_spo), keys_ops=t(keys_ops),
@@ -180,7 +171,7 @@ def build_store(triples: np.ndarray, num_shards: int = 1,
     """triples: (N, 3) int32. Bulk load (the paper's Table 4 operation).
     The index tensors go to `device`; the default is the card, and asking
     for it on a host without CUDA raises."""
-    device = _device(device)
+    device = resolve_device(device, "build_store")
     s, p, o = triples[:, 0], triples[:, 1], triples[:, 2]
     k_spo = np.sort(pack3(s, p, o))
     k_ops = np.sort(pack3(o, p, s))

@@ -14,12 +14,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import probe_gather as _pg
 from repro_torch.kernels import searchsorted as _ss
 
 IMPLS = ("kernel", "torch")
 
-launches = {"searchsorted": 0, "probe_gather": 0}
+launches = {"searchsorted": 0, "probe_gather": 0, "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -54,4 +55,21 @@ def probe_gather(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                                       eq_positions)
     out = _pg.probe_gather_cuda(keys, lo, hi, flt, cap, flt_mask, eq_positions)
     launches["probe_gather"] += int(lo.numel() > 0)
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale: float | None = None,
+                    impl: str = "kernel") -> torch.Tensor:
+    """Forward attention, q (b, sq, h, e) against k, v (b, skv, g, e);
+    returns (b, sq, h, e) in q's dtype. Causal needs sq <= skv: with the
+    end-aligned mask a query row before the first key has nothing to
+    attend to."""
+    if causal and q.shape[1] > k.shape[1]:
+        raise ValueError(f"causal attention needs sq <= skv, got sq="
+                         f"{q.shape[1]} and skv={k.shape[1]}")
+    if not _use_kernel(impl, q):
+        return _fa.flash_attention_plain(q, k, v, causal, scale)
+    out = _fa.flash_attention_cuda(q, k, v, causal, scale)
+    launches["flash_attention"] += int(q.numel() > 0)
     return out

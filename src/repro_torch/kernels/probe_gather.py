@@ -17,7 +17,6 @@ import functools
 
 import torch
 
-from repro_torch.core.rdf import BITS
 from repro_torch.kernels import _build
 from repro_torch.kernels.searchsorted import check_tensor
 
@@ -57,6 +56,8 @@ def probe_gather_cuda(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     """Launch the CUDA kernel on the current stream. keys: (M,) int64
     sorted; lo/hi: (B,) int64; flt: (B, 3) int64; all contiguous on one
     CUDA device. Returns (k, valid, missed) as described above."""
+    # imported here: importing core/ runs core/bgp.py, which imports ops
+    from repro_torch.core.rdf import BITS
     check_tensor(keys, "keys", torch.int64, (None,))
     dev = keys.device
     check_tensor(lo, "lo", torch.int64, (None,), dev)

@@ -1,0 +1,22 @@
+"""Token embedding lookups.
+
+On one device the JAX package's ``mapsin`` lookup (the vocab-sharded
+table answering token-id GETs) is the dense gather, so ``impl="mapsin"``
+maps to it here; the sharded form belongs to the distributed slice.
+
+Unlike ``jnp.take``, which clamps an out-of-range id, indexing raises on
+one (a device-side assert on a card): ids come from the tokenizer's range.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def dense_embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor, impl: str) -> torch.Tensor:
+    if impl not in ("dense", "mapsin"):
+        raise ValueError(f"embedding_impl must be 'dense' or 'mapsin', got {impl!r}")
+    return dense_embed(table, tokens)

@@ -1,0 +1,108 @@
+"""Parameter definition trees: one source of truth for shapes and init.
+
+Models declare ``ParamDef`` trees; from the same tree this module makes
+concrete tensors (``init_params``). A JAX parameter tree carried over as
+numpy arrays (``params_from_numpy``) has the same paths, shapes and
+layouts, so the model loads it as it is. The sharding helpers of the JAX
+package (``abstract_tree``, ``pspec_tree``, ...) belong to the
+distributed slice and are not here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.common import (dtype_of, resolve_device, tree_map_with_path,
+                                tree_paths)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """A dataclass (not NamedTuple) so tree utils treat it as a leaf."""
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]   # logical axis per dim (len == ndim)
+    dtype: str = "bfloat16"
+    init: str = "normal"           # normal | zeros | ones
+    scale: float = 0.02
+
+
+def pdef(shape, axes, dtype="bfloat16", init="normal", scale=0.02) -> ParamDef:
+    shape = tuple(int(s) for s in shape)
+    axes = tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {shape} and axes {axes} differ in rank")
+    return ParamDef(shape, axes, dtype, init, scale)
+
+
+def is_def(x: Any) -> bool:
+    return isinstance(x, ParamDef)
+
+
+def stack_defs(defs: Any, n: int, axis_name: str = "layers") -> Any:
+    """Prepend a stacked (layer) dim of size n to every def in the tree."""
+    def f(_, d: ParamDef):
+        return ParamDef((n,) + d.shape, (axis_name,) + d.axes, d.dtype, d.init, d.scale)
+    return tree_map_with_path(f, defs)
+
+
+def bytes_of(defs: Any) -> int:
+    return sum(int(np.prod(d.shape)) * dtype_of(d.dtype).itemsize
+               for _, d in tree_paths(defs))
+
+
+def path_seed(seed: int, path: tuple) -> int:
+    """A stable per-parameter seed: the path hash of the JAX package's
+    ``fold_path`` mixed with `seed` (Python's ``hash`` of a string changes
+    between processes, so it is not used)."""
+    h = 0
+    for part in path:
+        for ch in str(part):
+            h = (h * 131 + ord(ch)) % (2**31 - 1)
+    return (seed * (2**31 - 1) + h) % (2**63 - 1)
+
+
+def init_params(defs: Any, seed: int = 0, device="cuda") -> Any:
+    """Concrete tensors for a ParamDef tree: normal * scale drawn in float32
+    from a ``torch.Generator`` on `device` seeded per path (per layer for a
+    stacked def, so the float32 draw never holds more than one layer), cast
+    to the def's dtype; ``zeros``/``ones`` as named. The numbers differ from
+    the JAX package's for the same seed (another generator); tests carry
+    weights across with ``params_from_numpy``."""
+    device = resolve_device(device, "init_params")
+
+    def make(path, d: ParamDef):
+        dt = dtype_of(d.dtype)
+        if d.init == "zeros":
+            return torch.zeros(d.shape, dtype=dt, device=device)
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=dt, device=device)
+        gen = torch.Generator(device=device)
+        stacked = bool(d.axes) and d.axes[0] == "layers"
+        out = torch.empty(d.shape, dtype=dt, device=device)
+        for i, part in enumerate(out if stacked else [out]):
+            gen.manual_seed(path_seed(seed, path + ((i,) if stacked else ())))
+            w = torch.randn(part.shape, generator=gen, dtype=torch.float32,
+                            device=device)
+            part.copy_(w.mul_(d.scale))
+        return out
+
+    return tree_map_with_path(make, defs)
+
+
+def params_from_numpy(tree: Any, device="cuda") -> Any:
+    """The JAX package's parameter (or cache) tree, given as numpy arrays
+    under the same nested keys, as tensors on `device`. Shapes, dtypes and
+    layouts are kept: no transposes, since the port uses the JAX package's
+    weight layouts (``wq`` is (d, h, e), ``wo`` is (h, e, d), ...). numpy
+    has no bfloat16: pass such arrays as float32 and cast the result."""
+    device = resolve_device(device, "params_from_numpy")
+    return tree_map_with_path(
+        lambda _, a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+# a decode cache carries across the same way: (k, v) stacked per group and
+# a 0-dim int32 cur_len
+cache_from_numpy = params_from_numpy
