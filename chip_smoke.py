@@ -5,12 +5,17 @@
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device  — the card's name and power limit, torch and CUDA versions;
-  2. build   — compile the hand-written CUDA kernels (nvcc, sm_90a);
+  2. build   — compile the hand-written CUDA kernels (nvcc, sm_90a, one
+               process per source) with ptxas's registers and spills per
+               kernel, the wgmma attention kernel's shared memory and the
+               HGMMA instructions in its SASS (where cuobjdump exists);
   3. kernels — each kernel against its plain PyTorch version on the card:
                the index kernels bit-identical on fuzzed inputs, with
                timings; flash_attention within 2e-5 (float32) / 2e-2
-               (bfloat16) over head dims, GQA groupings, masks and ragged
-               lengths;
+               (bfloat16), and within 2^-12 / 2^-5 of each row's largest
+               output, over head dims, GQA groupings, masks and ragged
+               lengths, its cases counted by the kernel that ran (wgmma
+               for bf16 at e 64 and 128, simt otherwise);
   4. main path at full size — LUBM-like data at N universities (default
                400: about 5.17 M triples), every LUBM query through
                parse_bgp -> compile_plan -> execute_local with
@@ -22,10 +27,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
                weights from the seed: a batch of 4 prompts of 4000 tokens
                prefilled and 32 tokens decoded greedily through
                launch/serve.py's loop with attention_impl="kernel" (32
-               flash_attention launches per prefill, none in decode), then
-               teacher-forced against attention_impl="torch"; prefill
-               ms, tokens/s, decode ms/token, peak memory, and the kernel
-               timed on the first layer's own (q, k, v);
+               flash_attention launches per prefill, all on the wgmma
+               kernel, none in decode), then teacher-forced against
+               attention_impl="torch"; prefill ms, tokens/s, decode
+               ms/token, peak memory, and the kernel timed on the first
+               layer's own (q, k, v) beside SDPA, with its TFLOP/s, its
+               share of the bound and both errors (absolute and per
+               row) against the plain version;
   7. summary  — the kernels line, the memory line, the card line, and the
                result line as the last line.
 It needs a CUDA device and the repository's src/ beside it.
@@ -36,6 +44,7 @@ import argparse
 import inspect
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -48,6 +57,10 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet: 80 GB HBM3 at 3.35 TB/s
 BF16_FLOPS = 989.4e12          # H100 SXM data sheet: dense bf16 tensor cores
 F32_FLOPS = 66.9e12            # H100 SXM data sheet: float32 outside tensor cores
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels_attention.py
+# beside it, an error that scales with the output: max |kernel - plain| in
+# a row over max |plain| in that row, four bf16 ulps of the row's largest
+# element (a kv tile lost or taken twice moves a long row far more)
+ATTN_ROW_TOL = {"float32": 2 ** -12, "bfloat16": 2 ** -5}
 LM_BATCH, LM_PROMPT, LM_DECODE = 4, 4000, 32
 LOGIT_TOL = 5e-2               # max |kernel - torch| <= LOGIT_TOL * max |logits|
 CAPS_MAIN = dict(scan_cap=1 << 20, out_cap=1 << 20, probe_cap=128, row_cap=64)
@@ -132,6 +145,57 @@ def wall_ms(torch, fn, runs: int = 5) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def wgmma_smem_bytes(e: int) -> int:
+    """Dynamic shared memory of one block of csrc/flash_attention.cu's
+    wgmma kernel (its `tc::smem_bytes`): Q (128 x e bf16), two stages of K
+    and V (128 x e bf16 each), three 8-byte mbarriers, and 1024 bytes of
+    slack to align the base for the 128-byte swizzle."""
+    return 1024 + 128 * e * 2 * 5 + 3 * 8
+
+
+def row_rel_err(got, want) -> float:
+    """max over rows of max |got - want| / max |want| in that row."""
+    d = (got.float() - want.float()).abs().amax(-1)
+    return float((d / want.float().abs().amax(-1).clamp(min=1e-30)).max())
+
+
+def report_build(_build) -> None:
+    """ptxas's registers, spills and static shared memory for each kernel
+    entry, its warnings, the wgmma kernel's dynamic shared memory, and the
+    count of HGMMA (wgmma) instructions in the attention library's SASS."""
+    import re
+    for name, text in _build.build_log.items():
+        entry = spill = ""
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:                    # a short label from the mangled name
+                kern = re.search(r"[a-z_]+kernel", m.group(1))
+                kind = ("bf16" if "nv_bfloat16" in m.group(1) else
+                        "f32" if re.search(r"kernelIf", m.group(1)) else "")
+                dim = re.search(r"Li(\d+)E", m.group(1))
+                entry = ((kern.group(0) if kern else m.group(1))
+                         + (f"<{kind}, e={dim.group(1)}>" if dim else ""))
+            elif "warning" in line.lower() or "Performance Loss" in line:
+                log(f"[build] {name}: {line.strip()}")
+            elif "spill" in line:
+                spill = line.strip()
+            elif entry and "Used" in line:
+                log(f"[build] {name}: {entry}: "
+                    f"{line.split(':', 1)[-1].strip()}; {spill}")
+    log(f"[build] flash_attention wgmma kernel: dynamic shared memory "
+        f"{wgmma_smem_bytes(128)} bytes a block at e 128, "
+        f"{wgmma_smem_bytes(64)} at e 64")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(cuobjdump).exists():
+        log("[build] cuobjdump not found: SASS not inspected")
+        return
+    lib = _build._lib_path("flash_attention")
+    out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120)
+    log(f"[build] flash_attention SASS ({cuobjdump}): "
+        f"{out.stdout.count('HGMMA')} HGMMA instructions")
 
 
 # ---------------------------------------------------------------------------
@@ -228,15 +292,20 @@ def fuzz_flash_attention(torch, ops, seed: int) -> dict:
     """float32 and bfloat16; head dims 16..128; (h, g) of (4, 4), (8, 2),
     (32, 4); causal with sq == skv, causal with sq < skv (end-aligned),
     non-causal with sq != skv; lengths 1, 63, 65, 1000 and the like (not
-    multiples of the 64-row tile). randn inputs; a case fails above the
-    reference test's tolerance."""
+    multiples of the 64- or 128-row tiles). randn inputs; a case fails
+    above the reference test's tolerance or above ATTN_ROW_TOL of a row's
+    largest output, and the fuzz fails unless each case ran on the kernel
+    that kernels/flash_attention.py's rule names."""
     g = torch.Generator(device="cuda").manual_seed(seed + 2)
     lengths = {"causal sq==skv": [(1, 1), (63, 63), (65, 65), (1000, 1000)],
                "causal sq<skv": [(1, 65), (63, 1000), (65, 130), (1, 1000)],
                "non-causal sq!=skv": [(65, 63), (1000, 1), (63, 1000),
                                       (1, 65)]}
     worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst_row = dict(worst)
     cases = misses = 0
+    before = dict(ops.flash_attention_variants)
+    expect = {"wgmma": 0, "simt": 0}
     for dname, dt in (("float32", torch.float32),
                       ("bfloat16", torch.bfloat16)):
         for e in (16, 32, 64, 128):
@@ -248,21 +317,34 @@ def fuzz_flash_attention(torch, ops, seed: int) -> dict:
                         shape, generator=g, device="cuda").to(dt)
                     q, k, v = r(b, sq, h, e), r(b, skv, kvh, e), r(b, skv, kvh, e)
                     causal = mode.startswith("causal")
+                    expect["wgmma" if dt == torch.bfloat16 and e in (64, 128)
+                           else "simt"] += 1
                     got = ops.flash_attention(q, k, v, causal, impl="kernel")
                     want = ops.flash_attention(q, k, v, causal, impl="torch")
                     err = float((got.float() - want.float()).abs().max())
+                    row = row_rel_err(got, want)
                     cases += 1
                     worst[dname] = max(worst[dname], err)
-                    if not err <= ATTN_TOL[dname]:
+                    worst_row[dname] = max(worst_row[dname], row)
+                    if not (err <= ATTN_TOL[dname]
+                            and row <= ATTN_ROW_TOL[dname]):
                         misses += 1
                         log(f"[kernels] flash_attention MISS: {dname} e={e} "
                             f"h={h} g={kvh} {mode} sq={sq} skv={skv} "
-                            f"max_abs_err={err}")
+                            f"max_abs_err={err} row_rel_err={row}")
     torch.cuda.synchronize()
+    by_variant = {k: n - before[k] for k, n in ops.flash_attention_variants.items()}
     log(f"[kernels] flash_attention: {cases} cases (f32/bf16, e 16..128, "
-        f"(h,g) (4,4)/(8,2)/(32,4), 3 masks, ragged lengths), max_abs_err "
+        f"(h,g) (4,4)/(8,2)/(32,4), 3 masks, ragged lengths), by kernel "
+        f"{by_variant} (wgmma: bf16 at e 64 and 128), max_abs_err "
         f"f32={worst['float32']:.3e} bf16={worst['bfloat16']:.3e}, "
-        f"misses={misses}")
+        f"row_rel_err f32={worst_row['float32']:.3e} "
+        f"bf16={worst_row['bfloat16']:.3e} (bounds {ATTN_ROW_TOL['float32']:.3e}"
+        f" / {ATTN_ROW_TOL['bfloat16']:.3e}), misses={misses}")
+    if by_variant != expect:
+        misses += 1
+        log(f"[kernels] flash_attention MISS: the fuzz's launches by kernel "
+            f"{by_variant}, want {expect}")
     return {"mismatches": misses, "max_abs_err": max(worst.values())}
 
 
@@ -577,10 +659,15 @@ def run_lm_serving(torch, args, failures: list) -> dict:
     log(f"[lm] main path (launch/serve.py generate): kernel launches "
         f"{lm_launches}; first prefill {t_prefill_first * 1e3:.3f} ms, "
         f"decode {t_decode * 1e3:.3f} ms/token")
+    lm_variants = dict(ops.flash_attention_variants)
+    log(f"[lm] flash_attention launches by kernel: {lm_variants}")
     if lm_launches["flash_attention"] != cfg.num_layers:
         failures.append(f"lm: {lm_launches['flash_attention']} flash_attention "
                         f"launches in one prefill + decode, want "
                         f"{cfg.num_layers}")
+    if lm_variants != {"wgmma": cfg.num_layers, "simt": 0}:
+        failures.append(f"lm: flash_attention launches by kernel "
+                        f"{lm_variants}, want all {cfg.num_layers} on wgmma")
 
     # teacher-forced: both impls see the kernel run's tokens
     model_t = build_model(dataclasses.replace(cfg, attention_impl="torch"),
@@ -596,6 +683,10 @@ def run_lm_serving(torch, args, failures: list) -> dict:
             steps.append(logits.float())
         torch.cuda.synchronize()
         want = cfg.num_layers if name == "kernel" else 0
+        if ops.flash_attention_variants != {"wgmma": want, "simt": 0}:
+            failures.append(f"lm {name}: flash_attention launches by kernel "
+                            f"{ops.flash_attention_variants}, want {want} "
+                            f"wgmma")
         if after_prefill != want or ops.launches["flash_attention"] != want:
             failures.append(f"lm {name}: flash_attention launches "
                             f"{after_prefill} after prefill, "
@@ -652,6 +743,7 @@ def time_flash_attention(torch, ops, x: dict) -> dict:
     got = ops.flash_attention(q, k, v, causal, impl="kernel")
     want = ops.flash_attention(q, k, v, causal, impl="torch")
     err = float((got.float() - want.float()).abs().max())
+    row = row_rel_err(got, want)
     dname = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
     t_k = cuda_ms(torch, lambda: ops.flash_attention(q, k, v, causal, impl="kernel"),
                   iters=5, warmup=1)
@@ -661,6 +753,10 @@ def time_flash_attention(torch, ops, x: dict) -> dict:
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                   enable_gqa=True)
     t_l = cuda_ms(torch, sdpa, iters=10)
+    lib_out = sdpa().transpose(1, 2)
+    sdpa_err = float((lib_out.float() - want.float()).abs().max())
+    sdpa_row = row_rel_err(lib_out, want)
+    del lib_out
     backend = sdpa_backends(torch, sdpa)
     # what these inputs need: every unmasked (q, k) pair costs 2 flops in
     # q.k and 2 in p.v per head dim; q, k, v read once, o written once
@@ -673,7 +769,8 @@ def time_flash_attention(torch, ops, x: dict) -> dict:
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     rec = dict(name="flash_attention", **KERNELS["flash_attention"],
-               max_abs_err=err, mismatches=int(not err <= ATTN_TOL[dname]),
+               max_abs_err=err, mismatches=int(not (
+                   err <= ATTN_TOL[dname] and row <= ATTN_ROW_TOL[dname])),
                ms=t_k, plain_ms=t_p, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                library_ms=t_l,
@@ -685,7 +782,12 @@ def time_flash_attention(torch, ops, x: dict) -> dict:
                      f"ms); SDPA by backend: {backend}")
     log(f"[timing] flash_attention: {rec['shape']}: ms={t_k:.6f} "
         f"plain_ms={t_p:.6f} bound_ms={rec['bound_ms']:.6f} "
-        f"({rec['bound_by']}) library_ms={t_l:.6f} max_abs_err={err:.3e}")
+        f"({rec['bound_by']}) library_ms={t_l:.6f}; kernel "
+        f"{flops / t_k / 1e9:.1f} TFLOP/s, {100 * rec['bound_ms'] / t_k:.1f}% "
+        f"of the bound (SDPA {flops / t_l / 1e9:.1f} TFLOP/s); max_abs_err "
+        f"against the plain version: kernel {err:.3e}, SDPA {sdpa_err:.3e}; "
+        f"row_rel_err: kernel {row:.3e}, SDPA {sdpa_row:.3e} (bound "
+        f"{ATTN_ROW_TOL[dname]:.3e})")
     return rec
 
 
@@ -726,11 +828,8 @@ def main() -> int:
     t_phase = time.perf_counter()
     _build.build_all()
     log(f"[build] nvcc, {len(_build.SOURCES)} kernels in parallel: "
-        f"{_build.build_seconds:.1f} s")
-    for name, text in _build.build_log.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        f"{_build.build_seconds:.1f} s wall")
+    report_build(_build)
 
     # each phase reports its own failure and the next one still runs
     fuzz = {}

@@ -8,7 +8,9 @@ device. There is no fallback from a failed launch.
 
 ``launches`` counts kernel launches by name: each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that it went
-through the kernels.
+through the kernels. ``flash_attention_variants`` splits flash_attention's
+launches, counted in the same place, by the kernel that ran
+(``kernels/flash_attention.py variant``).
 """
 from __future__ import annotations
 
@@ -21,11 +23,14 @@ from repro_torch.kernels import searchsorted as _ss
 IMPLS = ("kernel", "torch")
 
 launches = {"searchsorted": 0, "probe_gather": 0, "flash_attention": 0}
+# flash_attention's launches by kernel: "wgmma" (tensor cores) or "simt"
+flash_attention_variants = {"wgmma": 0, "simt": 0}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, flash_attention_variants):
+        for name in counts:
+            counts[name] = 0
 
 
 def _use_kernel(impl: str, t: torch.Tensor) -> bool:
@@ -71,5 +76,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not _use_kernel(impl, q):
         return _fa.flash_attention_plain(q, k, v, causal, scale)
     out = _fa.flash_attention_cuda(q, k, v, causal, scale)
-    launches["flash_attention"] += int(q.numel() > 0)
+    if q.numel() > 0:
+        launches["flash_attention"] += 1
+        flash_attention_variants[_fa.variant(q)] += 1
     return out

@@ -6,8 +6,12 @@ ones, and the dispatch rules.
 Inputs are made by numpy from a seed; bf16 inputs are rounded once with
 ml_dtypes and handed to both packages. Tolerances are those of
 tests/test_kernels_attention.py: 2e-5 in float32, 2e-2 in bfloat16 (one
-rounding of the output). The CUDA kernel runs only on a card: its case is
-marked ``gpu`` and skips elsewhere."""
+rounding of the output). The CUDA kernels run only on a card: their case
+is marked ``gpu`` and skips elsewhere. A numerical model of the
+tensor-core kernel (P rounded to bf16 before P.V) stands in for it on the
+CPU, held against ``ref.attention_ref`` at the same bf16 tolerance."""
+import math
+
 import ml_dtypes
 import numpy as np
 import pytest
@@ -21,6 +25,7 @@ from repro.models import attention as jattn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.models import attention as attn
@@ -33,6 +38,11 @@ CASES = [
     (1, 64, 64, 2, 2, 128, True),
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# chip_smoke.py's flash_attention fuzz: (causal, sq, skv), ragged lengths
+# and the end-aligned causal diagonal with sq < skv
+FUZZ = [(True, 1, 1), (True, 63, 63), (True, 65, 65), (True, 1000, 1000),
+        (True, 1, 65), (True, 63, 1000), (True, 65, 130), (True, 1, 1000),
+        (False, 65, 63), (False, 1000, 1), (False, 63, 1000), (False, 1, 65)]
 
 
 def _inputs(rng, b, sq, skv, h, g, e, dtype):
@@ -47,6 +57,21 @@ def _inputs(rng, b, sq, skv, h, g, e, dtype):
         arrs = [a.astype(np.float32) for a in arrs]
         tens = [torch.from_numpy(a) for a in arrs]
     return [jnp.asarray(a) for a in arrs], tens
+
+
+def _row_rel_err(got, want) -> float:
+    """max over rows of max|got - want| / max|want| in that row: an error
+    that scales with the output, where the absolute bf16 bound is a large
+    share of the small outputs of long rows."""
+    got, want = (x.float() if isinstance(x, torch.Tensor)
+                 else torch.tensor(_f32(x)) for x in (got, want))
+    d = (got - want).abs().amax(-1)
+    return float((d / want.abs().amax(-1).clamp(min=1e-30)).max())
+
+
+# max |got - want| in a row over max |want| there: four bf16 ulps of the
+# row's largest element (chip_smoke.py's ATTN_ROW_TOL)
+ROW_TOL = {"float32": 2 ** -12, "bfloat16": 2 ** -5}
 
 
 def _f32(x):
@@ -68,6 +93,104 @@ def test_plain_matches_pallas_and_ref(case, dtype, rng):
                                   block_kv=64)
     np.testing.assert_allclose(_f32(got), _f32(pallas), rtol=0,
                                atol=TOL[dtype])
+
+
+def _wgmma_model(q, k, v, causal, block_kv=128, lose=None):
+    """The arithmetic of csrc/flash_attention.cu's wgmma kernel in plain
+    torch: kv tiles of block_kv keys (tiles wholly above the causal
+    diagonal skipped), scores in float32 scaled by scale * log2(e), an
+    online max and rescale with exp2, p zeroed by the mask, the sum l from
+    the float32 p, P rounded to bf16 before P.V, the output rounded once.
+    ``lose=(k0, row)`` models a faulty kernel: the tile at key k0 is lost
+    for query rows from ``row`` on."""
+    b, sq, h, e = q.shape
+    skv, g = k.shape[1], k.shape[2]
+    c = e ** -0.5 * math.log2(math.e)
+    qg = q.float().reshape(b, sq, g, h // g, e)
+    rows = torch.arange(sq)[:, None]
+    acc = torch.zeros(b, g, h // g, sq, e)
+    m = torch.full((b, g, h // g, sq), fa.NEG)
+    l = torch.zeros(b, g, h // g, sq)
+    last = sq - 1 + skv - sq if causal else skv - 1
+    for k0 in range(0, min(skv, last + 1), block_kv):
+        kt, vt = (x[:, k0:k0 + block_kv].float() for x in (k, v))
+        cols = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        ok = cols <= rows + (skv - sq) if causal else cols >= 0
+        if lose is not None and k0 == lose[0]:
+            ok = ok & (rows < lose[1])
+        s = torch.einsum("bqgre,bkge->bgrqk", qg, kt) * c
+        s = torch.where(ok, s, torch.tensor(fa.NEG))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None]) * ok
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bgrqk,bkge->bgrqe", p.bfloat16().float(), vt)
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    o = acc / l.clamp(min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, e).to(q.dtype)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_wgmma_model_matches_ref_on_cases(case, rng):
+    """bf16 P before P.V stays inside the bf16 tolerance on the reference
+    test's cases."""
+    b, sq, skv, h, g, e, causal = case
+    (jq, jk, jv), (q, k, v) = _inputs(rng, b, sq, skv, h, g, e, "bfloat16")
+    got = _wgmma_model(q, k, v, causal)
+    want = jref.attention_ref(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=0,
+                               atol=TOL["bfloat16"])
+    assert _row_rel_err(got, want) <= ROW_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("causal,sq,skv", FUZZ)
+def test_wgmma_model_matches_ref_on_fuzz_shapes(causal, sq, skv, rng):
+    """The same at the chip fuzz's lengths, at yi-6b's head dim and GQA
+    ratio: ragged tails, a single key, causal with sq < skv."""
+    (jq, jk, jv), (q, k, v) = _inputs(rng, 1, sq, skv, 16, 2, 128, "bfloat16")
+    got = _wgmma_model(q, k, v, causal)
+    want = jref.attention_ref(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=0,
+                               atol=TOL["bfloat16"])
+    assert _row_rel_err(got, want) <= ROW_TOL["bfloat16"]
+    if skv > 1:        # rounding P moves the result off the plain version
+        assert not torch.equal(got, flash_attention_plain(q, k, v, causal))
+
+
+@pytest.mark.parametrize("lose", [(256, 900), (0, 999), (896, 990)])
+def test_row_check_catches_a_lost_kv_tile(lose, rng):
+    """The per-row bound passes the kernel's rounding of P and fails a
+    kernel that loses one interior, first or diagonal kv tile for a few
+    late rows of a long causal prompt."""
+    _, (q, k, v) = _inputs(rng, 1, 1000, 1000, 8, 2, 128, "bfloat16")
+    want = flash_attention_plain(q, k, v, causal=True)
+    assert _row_rel_err(_wgmma_model(q, k, v, True), want) <= ROW_TOL["bfloat16"]
+    bad = _wgmma_model(q, k, v, True, lose=lose)
+    assert _row_rel_err(bad, want) > 4 * ROW_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e", fa.HEAD_DIMS)
+def test_variant_choice_by_dtype_and_head_dim(dtype, e):
+    q = torch.zeros((1, 4, 8, e), dtype=getattr(torch, dtype))
+    want = "wgmma" if dtype == "bfloat16" and e in (64, 128) else "simt"
+    assert fa.variant(q) == want
+
+
+def test_variant_needs_16_byte_aligned_pointers(monkeypatch):
+    """The wgmma kernel's tensor maps need q, k and v 16-byte aligned: the
+    wrapper raises on a pointer that is not, and never swaps kernels."""
+    q = torch.zeros((1, 4, 8, 128), dtype=torch.bfloat16)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)
+    off = flat[1:].view(q.shape)                 # 2 bytes past an allocation
+    assert fa.variant(off) == fa.variant(q) == "wgmma"
+    # let CPU tensors past the device check, which comes first on a card
+    monkeypatch.setattr(fa, "check_tensor", lambda *a, **kw: None)
+    for name, args in (("q", (off, q, q)), ("k", (q, off, q)),
+                       ("v", (q, q, off))):
+        with pytest.raises(ValueError, match=f"{name}: .*16-byte aligned"):
+            flash_attention_cuda(*args)
 
 
 @pytest.mark.parametrize("sq,skv", [(1, 70), (40, 100), (63, 65)])
@@ -138,10 +261,12 @@ def test_config_rejects_the_jax_impl_names(impl):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [
-    (2, 130, 130, 8, 2, 64, True), (1, 63, 1000, 4, 4, 128, True),
-    (2, 65, 97, 4, 1, 16, False), (1, 1, 65, 32, 4, 32, True)])
+@pytest.mark.parametrize("dtype,shape", [
+    (dt, shape) for dt in ("float32", "bfloat16") for shape in [
+        (2, 130, 130, 8, 2, 64, True), (1, 63, 1000, 4, 4, 128, True),
+        (2, 65, 97, 4, 1, 16, False), (1, 1, 65, 32, 4, 32, True)]]
+    # yi-6b's prefill head layout at one full prompt
+    + [("bfloat16", (1, 4000, 4000, 32, 4, 128, True))])
 def test_cuda_kernel_matches_plain(shape, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -149,9 +274,14 @@ def test_cuda_kernel_matches_plain(shape, dtype):
     b, sq, skv, h, g, e, causal = shape
     _, tens = _inputs(np.random.RandomState(sq), b, sq, skv, h, g, e, dtype)
     q, k, v = (t.cuda() for t in tens)
-    before = ops.launches["flash_attention"]
+    kernel = "wgmma" if dtype == "bfloat16" and e in (64, 128) else "simt"
+    before = dict(ops.launches)
+    by_kernel = dict(ops.flash_attention_variants)
     got = ops.flash_attention(q, k, v, causal=causal, impl="kernel")
     want = ops.flash_attention(q, k, v, causal=causal, impl="torch")
-    assert ops.launches["flash_attention"] == before + 1
+    assert ops.launches["flash_attention"] == before["flash_attention"] + 1
+    assert ops.flash_attention_variants == {
+        n: c + (n == kernel) for n, c in by_kernel.items()}
     err = float((got.float() - want.float()).abs().max())
     assert err <= TOL[dtype], err
+    assert _row_rel_err(got.cpu(), want.cpu()) <= ROW_TOL[dtype]
