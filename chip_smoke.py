@@ -11,11 +11,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
                HGMMA instructions in its SASS (where cuobjdump exists);
   3. kernels — each kernel against its plain PyTorch version on the card:
                the index kernels bit-identical on fuzzed inputs, with
-               timings; flash_attention within 2e-5 (float32) / 2e-2
-               (bfloat16), and within 2^-12 / 2^-5 of each row's largest
-               output, over head dims, GQA groupings, masks and ragged
-               lengths, its cases counted by the kernel that ran (wgmma
-               for bf16 at e 64 and 128, simt otherwise);
+               timings (searchsorted also on duplicate-heavy query sets,
+               runs of equal keys across its table's segments, INF_KEY
+               and below-every-key queries and small key arrays, at the
+               wrapper's parameters and at a small table with each path
+               forced; timed at the mostly distinct queries and at 1-4
+               distinct a warp beside a streaming floor: a stub kernel
+               that reads each query and writes 0); flash_attention
+               within 2e-5 (float32) / 2e-2 (bfloat16), and within
+               2^-12 / 2^-5 of each row's largest output, over head
+               dims, GQA groupings, masks and ragged lengths, its
+               cases counted by the kernel that ran (wgmma for bf16 at
+               e 64 and 128, simt otherwise);
   4. main path at full size — LUBM-like data at N universities (default
                400: about 5.17 M triples), every LUBM query through
                parse_bgp -> compile_plan -> execute_local with
@@ -76,6 +83,32 @@ KERNELS = {
                             source="src/repro_torch/csrc/flash_attention.cu",
                             replaces="src/repro/kernels/flash_attention.py:73"),
 }
+
+
+# The streaming floor of a rank-find, for timing beside the searchsorted
+# kernel: read each query once, write a rank of 0. Built from this string
+# into the kernels' build directory; it is measurement, not part of the port.
+FLOOR_CU = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+__global__ void floor_kernel(const int64_t* __restrict__ q, int64_t nq,
+                             int64_t* __restrict__ out) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= nq) return;
+  int64_t x;
+  asm volatile("ld.global.nc.b64 %0, [%1];" : "=l"(x) : "l"(q + i));
+  (void)x;
+  out[i] = 0;
+}
+extern "C" int floor_i64(const void* q, int64_t nq, void* out, void* stream) {
+  if (nq <= 0) return 0;
+  const int threads = 256;
+  floor_kernel<<<static_cast<unsigned int>((nq + threads - 1) / threads),
+                 threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(q), nq, static_cast<int64_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 
 
 def log(msg: str) -> None:
@@ -161,6 +194,42 @@ def row_rel_err(got, want) -> float:
     return float((d / want.float().abs().amax(-1).clamp(min=1e-30)).max())
 
 
+def start_floor_build(_build):
+    """Start nvcc on FLOOR_CU (beside the kernels' own builds); returns
+    a function that waits for it and gives floor(queries, out)."""
+    import ctypes
+    import hashlib
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    digest = hashlib.sha256((FLOOR_CU + " ".join(_build.NVCC_FLAGS))
+                            .encode()).hexdigest()[:16]
+    src = _build.BUILD_DIR / f"searchsorted_floor-{digest}.cu"
+    lib = _build.BUILD_DIR / f"libsearchsorted_floor-{digest}.so"
+    proc = None
+    if not lib.exists():
+        src.write_text(FLOOR_CU)
+        proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                                 str(lib), str(src)], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        if proc is not None:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"floor stub build failed:\n{out}")
+        fn = ctypes.CDLL(str(lib)).floor_i64
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def floor(torch, q, out):
+            rc = fn(q.data_ptr(), q.numel(), out.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"floor stub launch failed: CUDA error {rc}")
+        return floor
+    return finish
+
+
 def report_build(_build) -> None:
     """ptxas's registers, spills and static shared memory for each kernel
     entry, its warnings, the wgmma kernel's dynamic shared memory, and the
@@ -203,16 +272,57 @@ def report_build(_build) -> None:
 # ---------------------------------------------------------------------------
 
 
-def fuzz_searchsorted(torch, ops, rdf, seed: int) -> dict:
-    """About 4 M sorted unique keys with INF_KEY padding; queries: exact
-    hits, neighbours, 0, INF_KEY, fields at MAX_ID, random."""
+def searchsorted_bound_ms(torch, keys, q) -> float:
+    """What this input needs: each query read and each rank written once,
+    and the keys on the binary-search paths of its distinct queries, but
+    no more than the whole key array (the paths share their keys)."""
+    m = keys.numel()
+    depth = max(m, 1).bit_length()
+    nbytes = q.numel() * 16 + min(torch.unique(q).numel() * depth, m) * 8
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def time_searchsorted(torch, ops, floor, keys, q, label: str) -> dict:
+    """The kernel, its plain version, torch.searchsorted and the streaming
+    floor on one input, one after the other, with the bound and the
+    kernel's table (entries, segment, shared memory)."""
+    from repro_torch.kernels import searchsorted as ss
+    out = torch.empty_like(q)
+    t_f = cuda_ms(torch, lambda: floor(torch, q, out))
+    t_k = cuda_ms(torch, lambda: ops.searchsorted(keys, q, "kernel"))
+    t_l = cuda_ms(torch, lambda: torch.searchsorted(keys, q))
+    t_p = cuda_ms(torch, lambda: ops.searchsorted(keys, q, "torch"))
+    bound = searchsorted_bound_ms(torch, keys, q)
+    m = keys.numel()
+    seg = ss.segment_log2(m)
+    entries = -(-m // (1 << seg))
+    rec = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, floor_ms=t_f,
+               bound_ms=bound, distinct=torch.unique(q).numel())
+    log(f"[timing] searchsorted {label}: M={m} Q={q.numel()} "
+        f"distinct={rec['distinct']}: ms={t_k:.6f} library_ms={t_l:.6f} "
+        f"plain_ms={t_p:.6f} floor_ms={t_f:.6f} bound_ms={bound:.6f} "
+        f"({100 * bound / t_k:.1f}% of the bound; floor "
+        f"{100 * bound / t_f:.1f}%); kernel faster than "
+        f"torch.searchsorted: {t_k < t_l}; table {entries} entries of "
+        f"S={1 << seg} keys, {entries * 8} bytes of shared memory")
+    return rec
+
+
+def searchsorted_inputs(torch, rdf, seed: int):
+    """(keys, queries, sets). keys: about 4 M sorted unique keys with
+    INF_KEY padding; queries: exact hits, neighbours, 0, INF_KEY, fields at
+    MAX_ID, random (mostly distinct: the per-lane path). sets: name ->
+    (keys, queries), duplicate-heavy (2^20 equal queries, 1-4 distinct a
+    warp, the multiway step's few valid rows before zeros), runs of equal
+    keys longer than the table's segment, INF_KEY queries, queries below
+    every key, and key arrays of 1, 31, 32, 33 and 100,001 keys."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     n = 4_200_000
     r = lambda hi, k: torch.randint(0, hi, (k,), generator=g, device=dev)
+    inf = lambda k: torch.full((k,), rdf.INF_KEY, device=dev, dtype=torch.int64)
     keys = torch.unique(rdf.pack3(r(rdf.MAX_ID, n), r(64, n), r(rdf.MAX_ID, n)))
-    keys = torch.cat([keys, torch.full((4096,), rdf.INF_KEY, device=dev,
-                                       dtype=torch.int64)])
+    keys = torch.cat([keys, inf(4096)])
     real = keys[:-4096]
     pick = real[r(real.numel(), 1 << 19)]
     edge = torch.tensor(
@@ -226,18 +336,75 @@ def fuzz_searchsorted(torch, ops, rdf, seed: int) -> dict:
     queries = torch.cat([pick, pick - 1, pick + 1, edge,
                          rdf.pack3(r(rdf.MAX_ID + 1, k), r(65, k),
                                    r(rdf.MAX_ID + 1, k))])
+
+    sets = {}
+    q20 = 1 << 20
+    sets["2^20 equal"] = (keys, real[123456].repeat(q20))
+    sets["2^20 zeros"] = (keys, torch.zeros(q20, dtype=torch.int64, device=dev))
+    warps = q20 // 32
+    pool = torch.cat([pick[:64], pick[:64] + 1])
+    per = r(4, warps)[:, None]                   # 1-4 distinct a warp
+    sel = torch.minimum(r(4, q20).view(warps, 32), per)
+    sets["1-4 distinct a warp"] = (
+        keys, pool[r(pool.numel(), warps * 4).view(warps, 4).gather(1, sel)]
+        .reshape(-1).contiguous())
+    few = torch.zeros(q20, dtype=torch.int64, device=dev)
+    few[:18] = pick[:18]
+    sets["18 valid rows, then zeros"] = (keys, few)
+    vals = torch.sort(r(1 << 40, 3000))[0] + 1
+    runs = torch.cat([torch.repeat_interleave(vals, r(5000, 3000) + 1),
+                      inf(4096)])
+    sets["runs longer than S"] = (runs, torch.cat(
+        [vals, vals - 1, vals + 1, vals[r(3000, 200_000)],
+         torch.tensor([0, rdf.INF_KEY], device=dev)]))
+    sets["INF_KEY queries"] = (keys, torch.where(r(2, 100_003) == 0,
+                                                 rdf.INF_KEY, pick[:100_003]))
+    sets["below every key"] = (keys[1000:],
+                               pick[:50_000].clamp(max=int(keys[999])))
+    for m in (1, 31, 32, 33, 100_001):
+        small = torch.sort(r(1000, m))[0]
+        sets[f"M={m}"] = (small, torch.cat([r(1002, 777), small, torch.zeros(
+            64, dtype=torch.int64, device=dev), inf(3)]))
+    return keys, queries, sets
+
+
+def fuzz_searchsorted(torch, ops, rdf, seed: int, floor) -> dict:
+    """searchsorted_inputs' queries and every one of its sets, each at the
+    wrapper's parameters and at a small table with each path forced, all
+    bit-identical to the plain version; the mostly distinct queries and
+    the 1-4 distinct a warp set timed."""
+    from repro_torch.kernels import searchsorted as ss
+    keys, queries, sets = searchsorted_inputs(torch, rdf, seed)
     got = ops.searchsorted(keys, queries, impl="kernel")
     want = ops.searchsorted(keys, queries, impl="torch")
     torch.cuda.synchronize()
     mism = int((got != want).sum())
     err = int((got - want).abs().max())
-    ms = cuda_ms(torch, lambda: ops.searchsorted(keys, queries, "kernel"))
-    plain = cuda_ms(torch, lambda: ops.searchsorted(keys, queries, "torch"))
-    lib = cuda_ms(torch, lambda: torch.searchsorted(keys, queries))
+    time_searchsorted(torch, ops, floor, keys, queries,
+                      "fuzz (mostly distinct)")
+    time_searchsorted(torch, ops, floor, *sets["1-4 distinct a warp"],
+                      "1-4 distinct a warp")
+    cases = bad = 0
+    for name, (kk, qq) in sets.items():
+        want = ops.searchsorted(kk, qq, impl="torch")
+        outs = [ops.searchsorted(kk, qq, impl="kernel")]
+        for table_max in (ss.TABLE_MAX, 8):
+            for path in (ss.AUTO, ss.APART, ss.TOGETHER):
+                outs.append(ss.launch(kk, qq, *ss.launch_params(
+                    kk.numel(), table_max, path)))
+        for o in outs:
+            cases += 1
+            d = int((o != want).sum())
+            err = max(err, int((o - want).abs().max()))
+            if d:
+                bad += d
+                log(f"[kernels] searchsorted MISMATCH: {name}: {d}")
+    torch.cuda.synchronize()
     log(f"[kernels] searchsorted: M={keys.numel()} Q={queries.numel()} "
-        f"mismatches={mism} ms={ms:.6f} plain_ms={plain:.6f} "
-        f"library_ms={lib:.6f}")
-    return {"mismatches": mism, "max_abs_err": err}
+        f"mismatches={mism}; duplicate-heavy and boundary sets "
+        f"{list(sets)}: {cases} runs (wrapper; tables of TABLE_MAX and 8 "
+        f"entries x paths AUTO, APART, TOGETHER), mismatches={bad}")
+    return {"mismatches": mism + bad, "max_abs_err": err}
 
 
 def fuzz_probe_gather(torch, ops, rdf, seed: int) -> dict:
@@ -487,11 +654,11 @@ def profile_query(torch, run, name: str, reps: int = 3) -> None:
             f" x{e.count // reps}" for e in top))
 
 
-def time_kernels(torch, main: dict, fuzz: dict) -> list:
+def time_kernels(torch, main: dict, fuzz: dict, floor) -> list:
     """Each kernel at the inputs the main path gives it, recorded from one
     execute_local run: the first rank-find of the first query with a
-    multiway step, and the first GET of the first query with a mapsin
-    step."""
+    multiway step (beside the streaming floor), and the first GET of the
+    first query with a mapsin step."""
     from repro_torch.core import ExecConfig, execute_local
     from repro_torch.kernels import ops
     store, plans = main["store"], main["plans"]
@@ -510,24 +677,19 @@ def time_kernels(torch, main: dict, fuzz: dict) -> list:
     got = ops.searchsorted(keys, q, "kernel")
     want = ops.searchsorted(keys, q, "torch")
     err = int((got - want).abs().max())
-    t_k = cuda_ms(torch, lambda: ops.searchsorted(keys, q, "kernel"))
-    t_p = cuda_ms(torch, lambda: ops.searchsorted(keys, q, "torch"))
-    t_l = cuda_ms(torch, lambda: torch.searchsorted(keys, q))
-    # what this run's data needs: each query read and each rank written
-    # once, and the keys on the search paths of the distinct queries
-    depth = max(keys.numel(), 1).bit_length()
-    nbytes = q.numel() * 16 + torch.unique(q).numel() * depth * 8
+    t = time_searchsorted(torch, ops, floor, keys, q,
+                          f"{name}, first multiway rank-find")
     out.append(dict(name="searchsorted", **KERNELS["searchsorted"],
                     launches=main["launches"]["searchsorted"],
                     max_abs_err=max(err, fz["searchsorted"]["max_abs_err"]),
                     mismatches=fz["searchsorted"]["mismatches"]
                     + int((got != want).sum()),
-                    ms=t_k, plain_ms=t_p,
-                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-                    library_ms=t_l,
+                    ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["bound_ms"], bound_by="bytes",
+                    library_ms=t["library_ms"], floor_ms=t["floor_ms"],
                     shape=f"{name}, first multiway rank-find: "
                           f"M={keys.numel()} Q={q.numel()} "
-                          f"distinct={torch.unique(q).numel()}"))
+                          f"distinct={t['distinct']}"))
 
     name, x = args_of("probe_gather", "mapsin")
     keys, lo, hi, flt, cap = x["keys"], x["lo"], x["hi"], x["flt"], x["cap"]
@@ -563,7 +725,7 @@ def time_kernels(torch, main: dict, fuzz: dict) -> list:
                           f"cap={cap} flt_mask={msk} live_probes={live} "
                           f"nonempty_probes={nonempty} "
                           f"in_range_keys={in_range}"))
-    for k in out:
+    for k in out[1:]:                  # searchsorted's: time_searchsorted
         log(f"[timing] {k['name']}: {k['shape']}: ms={k['ms']:.6f} "
             f"plain_ms={k['plain_ms']:.6f} bound_ms={k['bound_ms']:.6f} "
             f"library_ms={k['library_ms']}")
@@ -826,7 +988,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_phase = time.perf_counter()
+    floor_ready = start_floor_build(_build)
     _build.build_all()
+    floor = floor_ready()
     log(f"[build] nvcc, {len(_build.SOURCES)} kernels in parallel: "
         f"{_build.build_seconds:.1f} s wall")
     report_build(_build)
@@ -834,7 +998,8 @@ def main() -> int:
     # each phase reports its own failure and the next one still runs
     fuzz = {}
     try:
-        fuzz["searchsorted"] = fuzz_searchsorted(torch, ops, rdf, args.seed)
+        fuzz["searchsorted"] = fuzz_searchsorted(torch, ops, rdf, args.seed,
+                                                 floor)
         fuzz["probe_gather"] = fuzz_probe_gather(torch, ops, rdf, args.seed)
         fuzz["flash_attention"] = fuzz_flash_attention(torch, ops, args.seed)
         for k, rec in fuzz.items():
@@ -849,7 +1014,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     try:
         main_run = run_main_path(torch, args, failures)
-        kernels = time_kernels(torch, main_run, fuzz)
+        kernels = time_kernels(torch, main_run, fuzz, floor)
         for k in kernels:
             if k["mismatches"]:
                 failures.append(f"{k['name']}: mismatches at the main "
