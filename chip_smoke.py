@@ -29,8 +29,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
                impl="kernel" and impl="torch" (bit-identical, no
                overflow), the kernels' launch counters checked, and each
                kernel timed at the inputs the main path gives it;
-  5. exactness — row sets against the oracle at small scale;
-  6. LM serving at full width — yi-6b (32 layers, d 4096, bf16) with
+  5. engine serving — two tenants' batched ServeEngines (serve/engine.py)
+               on the card: the main path's LUBM-like store and an
+               SP2B-like one (sp2b_like(24000)), the serving bench's
+               stream (192 requests from the seed, its caps, max_batch
+               16, escalation off) with impl="kernel": every request
+               equal to execute_local (rows and overflow) and to
+               impl="torch" engines, each dispatch launching the index
+               kernels as often as one query of its template at every
+               batch size (the vmap fold), then the saturated replay's
+               queries/s beside the sequential execute_local loop,
+               average batch, latency and dispatch p50/p99, peak memory,
+               the device's busy share over a replay, an escalating run
+               against the oracle, and a traced replay whose Chrome
+               trace (build/TRACE_serving.json) validates;
+  6. exactness — row sets against the oracle at small scale;
+  7. LM serving at full width — yi-6b (32 layers, d 4096, bf16) with
                weights from the seed: a batch of 4 prompts of 4000 tokens
                prefilled and 32 tokens decoded greedily through
                launch/serve.py's loop with attention_impl="kernel" (32
@@ -41,7 +55,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
                layer's own (q, k, v) beside SDPA, with its TFLOP/s, its
                share of the bound and both errors (absolute and per
                row) against the plain version;
-  7. summary  — the kernels line, the memory line, the card line, and the
+  8. summary  — the kernels line, the memory line, the card line, and the
                result line as the last line.
 It needs a CUDA device and the repository's src/ beside it.
 """
@@ -632,7 +646,7 @@ def run_main_path(torch, args, failures: list) -> dict:
         if name in plans:
             profile_query(torch, lambda p=plans[name]: execute_local(
                 store, p, cfg=kern), name)
-    return dict(store=store, plans=plans, launches=main_launches,
+    return dict(store=store, d=d, plans=plans, launches=main_launches,
                 per_query=per_query)
 
 
@@ -733,7 +747,356 @@ def time_kernels(torch, main: dict, fuzz: dict, floor) -> list:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: exactness against the oracle
+# phase 5: the batched serving engine
+# ---------------------------------------------------------------------------
+
+# the serving bench's stream (benchmarks/bench_serving.py): its caps, 192
+# requests from seed 0 at max_batch 16, escalation off for the identity
+# checks; the SP2B-like tenant at the largest scale whose generation takes
+# about 15 s on the host (the generator is quadratic in its scale)
+SERVE_CAPS = dict(out_cap=128, probe_cap=32, row_cap=16)
+SERVE_REQUESTS, SERVE_MAX_BATCH = 192, 16
+SP2B_SCALE = 24_000
+N_DEPT, N_PROF, N_COURSE = 12, 18, 24     # rdf_gen.lubm_like constants
+# the heavy-hitter escalation case of tests/test_robustness.py
+ESC_CAPS = dict(scan_cap=4096, out_cap=8, probe_cap=2, row_cap=4)
+
+
+def serving_shapes(tenant: str, scale: int, rng) -> list:
+    """(name, weight, sampler) of the serving bench's request shapes; a
+    sampler draws the constants from `rng` and returns (s, p, o) terms."""
+    u = lambda: rng.randint(scale)
+    dept = lambda: f"Dept{rng.randint(N_DEPT)}.U{u()}"
+    if tenant == "lubm":
+        course = lambda: f"Course{rng.randint(N_COURSE)}.D{rng.randint(N_DEPT)}.U{u()}"
+        prof = lambda: f"Prof{rng.randint(N_PROF)}.D{rng.randint(N_DEPT)}.U{u()}"
+        return [
+            ("lubm_q1", 3, lambda: [("?x", "rdf:type", "GraduateStudent"),
+                                    ("?x", "takesCourse", course())]),
+            ("lubm_q3", 3, lambda: [("?x", "rdf:type", "Publication"),
+                                    ("?x", "publicationAuthor", prof())]),
+            ("lubm_q5", 3, lambda: [("?x", "rdf:type", "Student"),
+                                    ("?x", "memberOf", dept())]),
+            ("lubm_q13", 3, lambda: [("?p", "worksFor", dept()),
+                                     ("?x", "advisor", "?p")]),
+            ("lubm_q7", 2, lambda: [("?y", "rdf:type", "Course"),
+                                    (prof(), "teacherOf", "?y"),
+                                    ("?x", "takesCourse", "?y"),
+                                    ("?x", "rdf:type", "Student")]),
+            ("lubm_q11", 1, lambda: [("?x", "rdf:type", "ResearchGroup"),
+                                     ("?x", "subOrganizationOf",
+                                      f"Univ{u()}")]),
+            ("lubm_q4star", 2, lambda: [("?x", "rdf:type", "Professor"),
+                                        ("?x", "worksFor", dept()),
+                                        ("?x", "name", "?y1"),
+                                        ("?x", "emailAddress", "?y2"),
+                                        ("?x", "telephone", "?y3")]),
+        ]
+    n_persons = max(scale // 3, 8)
+    return [
+        ("sp2b_title", 3, lambda: [("?a", "rdf:type", "Article"),
+                                   ("?a", "dc:title",
+                                    f"title{2 * rng.randint(scale // 2)}"),
+                                   ("?a", "dcterms:issued", "?yr")]),
+        ("sp2b_author", 3, lambda: [("?a", "dc:creator",
+                                     f"Person{rng.randint(n_persons)}"),
+                                    ("?a", "dc:title", "?t")]),
+        ("sp2b_person", 3, lambda: [("?s", "?pr",
+                                     f"Person{rng.randint(n_persons)}")]),
+    ]
+
+
+def serving_stream(tenants: dict, n: int, rng) -> list:
+    """`n` requests (tenant, shape name, patterns), shapes by weight."""
+    choices = [(t, name, fn) for t, x in tenants.items()
+               for name, w, fn in x["shapes"] for _ in range(w)]
+    out = []
+    for _ in range(n):
+        t, name, fn = choices[rng.randint(len(choices))]
+        out.append((t, name, [tenants[t]["d"].pattern(*x) for x in fn()]))
+    return out
+
+
+def replay(engines: dict, reqs: list) -> dict:
+    """The saturated replay: every request queued at time 0, then the
+    engine with the deepest queue steps until all are served, on a
+    virtual clock advanced by each step's wall time. Returns the results
+    by (tenant, rid), each request's latency (s), each dispatch's wall
+    time (s), the wall time of the whole replay and the dispatches."""
+    now, lat, step_s, out = 0.0, [], [], {}
+    d0 = sum(e.dispatches for e in engines.values())
+    t_all = time.perf_counter()
+    for tenant, _, pats in reqs:
+        engines[tenant].submit(pats, arrival=0.0, tenant=tenant)
+    while any(e.pending() for e in engines.values()):
+        busiest = max(engines, key=lambda t: engines[t].pending())
+        t0 = time.perf_counter()
+        results = engines[busiest].step(now=now)
+        dt = time.perf_counter() - t0
+        now += dt
+        step_s.append(dt)
+        for r in results:
+            out[(busiest, r.request_id)] = r
+            lat.append(now)
+    return dict(results=out, lat=lat, step_s=step_s,
+                wall=time.perf_counter() - t_all,
+                dispatches=sum(e.dispatches for e in engines.values()) - d0)
+
+
+def pct(xs: list, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(int(q * len(xs)), len(xs) - 1)] if xs else float("nan")
+
+
+def enumerate_requests(reqs: list) -> dict:
+    """(tenant, rid) -> request: each engine numbers its own submits."""
+    out, nxt = {}, {}
+    for t, name, pats in reqs:
+        out[(t, nxt.get(t, 0))] = (t, name, pats)
+        nxt[t] = nxt.get(t, 0) + 1
+    return out
+
+
+def seed_launches(template) -> int:
+    """searchsorted launches of the seed scan of a template: its range
+    GET (two rank-finds) on a bound prefix without residual filters,
+    none on the full-scan path."""
+    from repro_torch.core.plan import make_plan
+    plan = make_plan(template.steps[0].patterns[0], template.const_vars)
+    return 2 if plan.prefix and not plan.residual and not plan.eq_positions \
+        else 0
+
+
+def run_engine_serving(torch, args, lubm: dict, failures: list) -> None:
+    """Two tenants' ServeEngines on the card: the LUBM-like store of the
+    main path and an SP2B-like one, the serving bench's stream through
+    them with impl="kernel" (the phase's main path), each request held
+    against execute_local and against impl="torch" engines, each
+    dispatch's launches against one execute_local of its template, then
+    the saturated replay timed beside the sequential execute_local loop,
+    an escalating run against the oracle and a traced replay."""
+    import numpy as np
+
+    from repro_torch.core import (Caps, ExecConfig, build_store,
+                                  compile_plan, execute_local,
+                                  execute_oracle, rows_set)
+    from repro_torch.core.rdf import Pattern
+    from repro_torch.data import sp2b_like
+    from repro_torch.kernels import ops
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.obs.trace import load_chrome, validate_events
+    from repro_torch.serve import ServeEngine
+
+    t0 = time.perf_counter()
+    st, sd, _ = sp2b_like(SP2B_SCALE, seed=args.seed)
+    t_gen = time.perf_counter() - t0
+    tenants = {
+        "lubm": dict(store=lubm["store"], d=lubm["d"],
+                     n=lubm["store"].n_triples, scale=args.universities),
+        "sp2b": dict(store=build_store(st, device="cuda"), d=sd,
+                     n=len(st), scale=SP2B_SCALE)}
+    log(f"[serve] tenants: lubm_like({args.universities}) "
+        f"{tenants['lubm']['n']:,} triples (the main path's store); "
+        f"sp2b_like({SP2B_SCALE}) {len(st):,} triples, generated in "
+        f"{t_gen:.1f} s")
+    rng = np.random.RandomState(args.seed)
+    for t, x in tenants.items():
+        x["shapes"] = serving_shapes(t, x["scale"], rng)
+    reqs = serving_stream(tenants, SERVE_REQUESTS, rng)
+    caps = Caps(**SERVE_CAPS)
+    kern, plain = ExecConfig(impl="kernel"), ExecConfig(impl="torch")
+
+    def engines(cfg):
+        return {t: ServeEngine(x["store"], x["d"], cfg=cfg, caps=caps,
+                               max_batch=SERVE_MAX_BATCH,
+                               max_queue=4 * SERVE_REQUESTS,
+                               compile_cache_size=64, max_escalations=0,
+                               metrics=MetricsRegistry(), name=t)
+                for t, x in tenants.items()}
+
+    # the main path: counts to 0 just before, read just after; each
+    # dispatch's launches recorded by template and batch
+    eng = engines(kern)
+    per_dispatch = []
+    for t, e in eng.items():
+        def counted(tid, template, batch, *a, _orig=e._dispatch, _t=t):
+            before = dict(ops.launches)
+            out = _orig(tid, template, batch, *a)
+            per_dispatch.append((_t, tid, template, batch, tuple(
+                ops.launches[k] - before[k]
+                for k in ("searchsorted", "probe_gather"))))
+            return out
+        e._dispatch = counted
+    ops.reset_launches()
+    first = replay(eng, reqs)
+    serve_launches, folds = dict(ops.launches), dict(ops.vmap_folds)
+    for e in eng.values():
+        del e._dispatch
+    log(f"[serve] main path (2 engines, impl='kernel', {SERVE_REQUESTS} "
+        f"requests, first run): {first['dispatches']} dispatches, kernel "
+        f"launches {serve_launches}, vmap folds {folds}, "
+        f"{first['wall']:.3f} s")
+    for k in ("searchsorted", "probe_gather"):
+        if serve_launches[k] <= 0:
+            failures.append(f"serve: the engine never launched the {k} "
+                            f"kernel")
+
+    # each request against execute_local at the same caps
+    local, ok_local = {}, 0
+    for rid, (t, name, pats) in enumerate_requests(reqs).items():
+        key = (t, tuple(pats))
+        if key not in local:
+            bnd = execute_local(tenants[t]["store"], pats, "mapsin", cfg=kern,
+                                caps=caps)
+            local[key] = (rows_set(bnd.table, bnd.valid, len(bnd.vars)),
+                          tuple(bnd.vars), int(bnd.overflow))
+        want, vars_, ovf = local[key]
+        got = first["results"][rid]
+        if got.rows_set(vars_) == want and got.overflow == ovf:
+            ok_local += 1
+        else:
+            failures.append(f"serve: {t} {name} rid {rid[1]}: "
+                            f"{len(got.rows)} rows, overflow {got.overflow}; "
+                            f"execute_local {len(want)} rows, overflow {ovf}")
+
+    # impl="kernel" against impl="torch" engines, request by request
+    ops.reset_launches()
+    plain_run = replay(engines(plain), reqs)
+    if any(ops.launches.values()):
+        failures.append(f"serve: impl='torch' engines launched kernels: "
+                        f"{ops.launches}")
+    ok_plain = 0
+    for rid, got in first["results"].items():
+        want = plain_run["results"].get(rid)
+        if (want is not None and got.vars == want.vars
+                and got.overflow == want.overflow and got.stats == want.stats
+                and np.array_equal(got.rows, want.rows)):
+            ok_plain += 1
+        else:
+            failures.append(f"serve: {rid}: the kernel and torch engines "
+                            f"differ")
+    overflowed = sum(r.overflow > 0 for r in first["results"].values())
+    log(f"[serve] identity: {ok_local}/{SERVE_REQUESTS} requests equal "
+        f"execute_local (rows and overflow, same caps), {ok_plain}/"
+        f"{SERVE_REQUESTS} equal the impl='torch' engines; {overflowed} "
+        f"requests report overflow at the bench's caps")
+
+    # each dispatch launches as often as one query of its template
+    by_tid: dict = {}
+    for t, tid, template, batch, got in per_dispatch:
+        by_tid.setdefault((t, tid), (template, {}))[1].setdefault(
+            batch, set()).add(got)
+    members = {}
+    for (t, name, pats) in reqs:
+        tid = eng[t]._signature_for(tuple(pats), caps)[0]
+        members.setdefault((t, tid), pats)
+    lines = []
+    for (t, tid), (template, seen) in sorted(by_tid.items()):
+        plan = eng[t]._compile(tuple(members[(t, tid)]))
+        before = dict(ops.launches)
+        execute_local(tenants[t]["store"], plan, cfg=kern)
+        torch.cuda.synchronize()
+        one = (ops.launches["searchsorted"] - before["searchsorted"]
+               + seed_launches(template),
+               ops.launches["probe_gather"] - before["probe_gather"])
+        counts = set().union(*seen.values())
+        lines.append(f"{t}:t{tid} {'+'.join(st.kind for st in template.steps)}"
+                     f" batches {sorted(seen)} -> {sorted(counts)} "
+                     f"(execute_local + seed: {one})")
+        if counts != {one}:
+            failures.append(f"serve: {t} template t{tid}: launches per "
+                            f"dispatch {sorted(counts)} at batches "
+                            f"{sorted(seen)}, one query launches {one}")
+    log("[serve] launches (searchsorted, probe_gather) per dispatch by "
+        "template: " + "; ".join(lines))
+
+    # saturated replay on warmed engines beside the sequential loop
+    for t, _, pats in reqs:
+        eng[t].precompile(pats)
+    torch.cuda.reset_peak_memory_stats()
+    sat = replay(eng, reqs)
+    peak = torch.cuda.max_memory_allocated()
+
+    # the sequential loop from the patterns (planning inside the loop, as
+    # the JAX bench times it: a run plans again whatever the store's LRU
+    # plan cache no longer holds), then over plans compiled before it
+    def sequential(items):
+        t0 = time.perf_counter()
+        for t, q in items:
+            execute_local(tenants[t]["store"], q, "mapsin", cfg=kern,
+                          caps=caps)
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    seq_s = sequential([(t, pats) for t, _, pats in reqs])
+    plans = [(t, compile_plan(tenants[t]["store"], pats, caps))
+             for t, _, pats in reqs]
+    seq_plan_s = sequential(plans)
+    qps, qps_plan = SERVE_REQUESTS / sat["wall"], SERVE_REQUESTS / seq_plan_s
+    avg_batch = SERVE_REQUESTS / max(sat["dispatches"], 1)
+    log(f"[serve] saturated: engine {qps:.1f} queries/s ({sat['wall']:.4f} "
+        f"s for {SERVE_REQUESTS}); sequential execute_local loop from "
+        f"patterns {SERVE_REQUESTS / seq_s:.1f} queries/s ({seq_s:.4f} s), "
+        f"from compiled plans {qps_plan:.1f} ({seq_plan_s:.4f} s); "
+        f"engine over compiled-plan loop {qps / qps_plan:.3f}x; store plan "
+        f"caches " + ", ".join(f"{t} {len(x['store'].plan_cache)}/"
+                               f"{x['store'].plan_cache.maxsize} entries"
+                               for t, x in tenants.items())
+        + f"; {sat['dispatches']} dispatches, average "
+        f"batch {avg_batch:.2f}; request latency p50 "
+        f"{1e3 * pct(sat['lat'], 0.5):.3f} ms, p99 "
+        f"{1e3 * pct(sat['lat'], 0.99):.3f} ms (all queued at 0); dispatch "
+        f"wall p50 {1e3 * pct(sat['step_s'], 0.5):.3f} ms, p99 "
+        f"{1e3 * pct(sat['step_s'], 0.99):.3f} ms; peak memory "
+        f"{peak} bytes ({peak / 2 ** 30:.3f} GiB)")
+    profile_query(torch, lambda: replay(eng, reqs), "engine replay", reps=1)
+    profile_query(torch, lambda: sequential(plans),
+                  "sequential loop over compiled plans", reps=1)
+
+    # the escalation ladder against the oracle, at small scale
+    g = np.random.RandomState(args.seed)
+    tr = np.stack([g.randint(0, 40, 500), g.randint(100, 105, 500),
+                   g.randint(0, 40, 500)], 1).astype(np.int32)
+    chain = [Pattern("?x", 101, "?y"), Pattern("?y", 102, "?z")]
+    e_esc = ServeEngine(build_store(tr, device="cuda"), caps=Caps(**ESC_CAPS),
+                        metrics=False)
+    res = e_esc.execute([chain])[0]
+    want, ovars = execute_oracle(tr, chain)
+    esc_ok = (res.rows_set(ovars) == want and res.overflow == 0
+              and e_esc.escalations + e_esc.fallbacks > 0)
+    log(f"[serve] escalation: heavy-hitter chain at out_cap "
+        f"{ESC_CAPS['out_cap']}: {e_esc.escalations} escalations, "
+        f"{e_esc.fallbacks} fallbacks, {len(res.rows)} rows, oracle "
+        f"{len(want)}: equal {esc_ok}")
+    if not esc_ok:
+        failures.append("serve: the escalating run differs from the oracle")
+
+    # a traced replay: Chrome trace under build/, schema-checked
+    tracer, reg = Tracer(), MetricsRegistry()
+    for e in eng.values():
+        e.tracer, e.metrics_registry = tracer, reg
+    w0 = tracer.now()
+    traced = replay(eng, reqs)
+    w1 = tracer.now()
+    for e in eng.values():
+        e.tracer = None
+    coverage = tracer.coverage(w0, w1, track="engine")
+    path = Path(__file__).resolve().parent / "build" / "TRACE_serving.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tracer.export(str(path))
+    events = load_chrome(str(path))
+    validate_events(events)
+    hist = reg.to_dict()["histograms"]
+    p99 = {t: hist[f'serve_tenant_latency_seconds{{tenant="{t}"}}']["p99"]
+           for t in tenants}
+    log(f"[serve] trace: {path.relative_to(path.parents[1])}, "
+        f"{len(events)} events, valid; span coverage of the engine track "
+        f"{coverage:.4f}; traced replay {SERVE_REQUESTS / traced['wall']:.1f}"
+        f" queries/s; tenant latency p99 (registry, virtual clock) "
+        + ", ".join(f"{t} {1e3 * v:.3f} ms" for t, v in p99.items()))
+
+
+# ---------------------------------------------------------------------------
+# phase 6: exactness against the oracle
 # ---------------------------------------------------------------------------
 
 
@@ -765,7 +1128,7 @@ def check_oracle(torch, failures: list) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: LM serving at full width
+# phase 7: LM serving at full width
 # ---------------------------------------------------------------------------
 
 
@@ -1011,9 +1374,11 @@ def main() -> int:
     t_phase = phase_done("build + kernels", t_phase)
 
     kernels = []
+    lubm = None
     torch.cuda.reset_peak_memory_stats()
     try:
         main_run = run_main_path(torch, args, failures)
+        lubm = dict(store=main_run["store"], d=main_run["d"])
         kernels = time_kernels(torch, main_run, fuzz, floor)
         for k in kernels:
             if k["mismatches"]:
@@ -1024,6 +1389,19 @@ def main() -> int:
         failures.append(f"phase main path:\n{traceback.format_exc()}")
     peak = torch.cuda.max_memory_allocated()
     t_phase = phase_done("LUBM main path", t_phase)
+
+    # the serving engine over the main path's store (not built twice)
+    if lubm is None:
+        failures.append("phase engine serving: no LUBM store from the "
+                        "main path")
+    else:
+        try:
+            run_engine_serving(torch, args, lubm, failures)
+        except Exception:
+            failures.append(f"phase engine serving:\n{traceback.format_exc()}")
+    del lubm
+    torch.cuda.empty_cache()
+    t_phase = phase_done("engine serving", t_phase)
 
     try:
         check_oracle(torch, failures)

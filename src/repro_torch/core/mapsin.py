@@ -19,7 +19,7 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.core.plan import (PatternPlan, _resolve, make_plan,
+from repro_torch.core.plan import (PatternPlan, filter_columns, make_plan,
                                    probe_ranges, residual_values, row_range)
 from repro_torch.core.rdf import unpack3
 from repro_torch.kernels import ops
@@ -234,15 +234,11 @@ def multiway_step(bindings: Bindings, patterns: Sequence, keys: torch.Tensor,
     for plan in plans:
         flt, msk = residual_values(plan, bindings.table)
         # secondary/tertiary prefix components become residual filters on
-        # the fetched row (written in place into a fresh zero tensor)
-        extra_vals = torch.zeros((bindings.capacity, 3), dtype=torch.int64,
-                                 device=dev)
-        extra_msk = [False, False, False]
-        for pos, sc in enumerate(plan.prefix[1:], start=1):
-            extra_vals[:, pos] = _resolve(sc, bindings.table)
-            extra_msk[pos] = True
+        # the fetched row
+        extra_vals, extra_msk = filter_columns(
+            dict(enumerate(plan.prefix[1:], start=1)), bindings.table)
         match = apply_residual(k, in_row, flt, msk, plan.eq_positions)
-        match = apply_residual(k, match, extra_vals, tuple(extra_msk))
+        match = apply_residual(k, match, extra_vals, extra_msk)
         # expand current out rows against this pattern's matches
         co = cur_origin.long()
         km = k[co]                                 # (out_cap, row_cap)

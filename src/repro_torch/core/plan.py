@@ -123,16 +123,21 @@ def probe_ranges(plan: PatternPlan, table: torch.Tensor):
     return lo, hi
 
 
-def residual_values(plan: PatternPlan, table: torch.Tensor):
-    """(B, 3) filter values + (3,) bool mask over index-order positions.
-    The columns are written in place into a fresh zero tensor."""
-    vals = torch.zeros((table.shape[0], 3), dtype=torch.int64,
+def filter_columns(sources: dict[int, Source], table: torch.Tensor):
+    """(B, 3) int64 values + (3,) bool mask over index-order positions:
+    column `pos` is ``_resolve(sources[pos])``, or zeros where `pos` has no
+    source. Built out of place with ``torch.stack``, so the cascade also
+    runs under ``torch.func.vmap``."""
+    zero = torch.zeros((table.shape[0],), dtype=torch.int64,
                        device=table.device)
-    mask = [False, False, False]
-    for pos, sc in plan.residual:
-        vals[:, pos] = _resolve(sc, table)
-        mask[pos] = True
-    return vals, tuple(mask)
+    vals = torch.stack([_resolve(sources[pos], table) if pos in sources
+                        else zero for pos in range(3)], dim=1)
+    return vals, tuple(pos in sources for pos in range(3))
+
+
+def residual_values(plan: PatternPlan, table: torch.Tensor):
+    """(B, 3) filter values + (3,) bool mask over index-order positions."""
+    return filter_columns(dict(plan.residual), table)
 
 
 def row_range(plan: PatternPlan, table: torch.Tensor):

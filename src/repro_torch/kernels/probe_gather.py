@@ -24,6 +24,26 @@ from repro_torch.kernels.searchsorted import check_tensor
 _EQ_BIT = {(0, 1): 1, (0, 2): 2, (1, 2): 4}
 
 
+def encode_masks(flt_mask: tuple, eq_positions: tuple) -> tuple[int, int]:
+    """(fmask, eq_mask): the kernel's bit masks of the residual positions
+    and of the intra-pattern repeats."""
+    if len(flt_mask) != 3:
+        raise ValueError(f"probe_gather: flt_mask needs 3 flags, got {flt_mask}")
+    eq_mask = 0
+    for a, c in eq_positions:
+        pair = (min(a, c), max(a, c))
+        if pair not in _EQ_BIT:
+            raise ValueError(f"probe_gather: bad eq position pair {(a, c)}")
+        eq_mask |= _EQ_BIT[pair]
+    return sum(1 << p for p in range(3) if flt_mask[p]), eq_mask
+
+
+def decode_masks(fmask: int, eq_mask: int) -> tuple[tuple, tuple]:
+    """(flt_mask, eq_positions) of `encode_masks`' bit masks."""
+    return (tuple(bool(fmask >> p & 1) for p in range(3)),
+            tuple(pair for pair, bit in _EQ_BIT.items() if eq_mask & bit))
+
+
 def probe_gather_plain(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                        flt: torch.Tensor, cap: int,
                        flt_mask: tuple = (False, False, False),
@@ -66,15 +86,7 @@ def probe_gather_cuda(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     check_tensor(flt, "flt", torch.int64, (b, 3), dev)
     if not 1 <= int(cap) < 2 ** 31:
         raise ValueError(f"probe_gather: cap must be in [1, 2^31), got {cap}")
-    if len(flt_mask) != 3:
-        raise ValueError(f"probe_gather: flt_mask needs 3 flags, got {flt_mask}")
-    eq_mask = 0
-    for a, c in eq_positions:
-        pair = (min(a, c), max(a, c))
-        if pair not in _EQ_BIT:
-            raise ValueError(f"probe_gather: bad eq position pair {(a, c)}")
-        eq_mask |= _EQ_BIT[pair]
-    fmask = sum(1 << p for p in range(3) if flt_mask[p])
+    fmask, eq_mask = encode_masks(flt_mask, eq_positions)
     cap = int(cap)
     k = torch.empty((b, cap), dtype=torch.int64, device=dev)
     valid = torch.empty((b, cap), dtype=torch.bool, device=dev)

@@ -205,3 +205,60 @@ def test_cuda_kernels_match_plain(cap):
             want = ops.probe_gather(tk, tl, th, tf, cap, msk, eq, "torch")
             for g, w in zip(got, want):
                 assert torch.equal(g, w)
+
+
+def _fold_inputs(n=3, b=40, seed=5):
+    rng = np.random.RandomState(seed)
+    keys = np.unique(pack3(rng.randint(0, 60, 3000), rng.randint(0, 4, 3000),
+                           rng.randint(0, 9, 3000)))
+    v = rng.randint(0, 62, (n, b)).astype(np.int64)
+    z = np.zeros_like(v)
+    lo, hi = pack3(v, z, z), pack3(v + 1, z, z)
+    flt = np.stack([v, rng.randint(0, 4, (n, b)), rng.randint(0, 9, (n, b))],
+                   -1)
+    return T(keys), T(lo), T(hi), T(flt)
+
+
+@pytest.mark.parametrize("bdim", [0, 1])
+def test_vmap_folds_the_batch_into_one_call(bdim):
+    """vmap over the index ops equals the calls slot by slot, and each
+    vmapped call is folded once (one launch on a card) whatever the batch
+    dim's position."""
+    keys, lo, hi, flt = _fold_inputs()
+    n = lo.shape[0]
+    mv = lambda x: x.movedim(0, bdim).contiguous()
+    before = dict(ops.vmap_folds), dict(ops.launches)
+    got = torch.func.vmap(lambda q: ops.searchsorted(keys, q),
+                          in_dims=bdim)(mv(lo))
+    for i in range(n):
+        assert torch.equal(got[i], ops.searchsorted(keys, lo[i]))
+    pg = torch.func.vmap(
+        lambda a, c, f: ops.probe_gather(keys, a, c, f, 8, (True, True, False),
+                                         ((1, 2),)),
+        in_dims=(bdim, bdim, bdim))(mv(lo), mv(hi), mv(flt))
+    for i in range(n):
+        want = ops.probe_gather(keys, lo[i], hi[i], flt[i], 8,
+                                (True, True, False), ((1, 2),))
+        for g, w in zip(pg, want):
+            assert torch.equal(g[i], w)
+    assert ops.vmap_folds["searchsorted"] == before[0]["searchsorted"] + 1
+    assert ops.vmap_folds["probe_gather"] == before[0]["probe_gather"] + 1
+    assert ops.launches == before[1]             # the CPU runs no kernel
+
+
+def test_vmap_rule_shares_unbatched_inputs_and_refuses_batched_keys():
+    keys, lo, hi, flt = _fold_inputs()
+    got = torch.func.vmap(lambda a, c: ops.probe_gather(
+        keys, a, c, flt[0], 8, (True, False, False)))(lo, hi)
+    for i in range(lo.shape[0]):
+        want = ops.probe_gather(keys, lo[i], hi[i], flt[0], 8,
+                                (True, False, False))
+        for g, w in zip(got, want):
+            assert torch.equal(g[i], w)
+    stacked = keys.expand(3, -1)
+    with pytest.raises(ValueError, match="shared"):
+        torch.func.vmap(lambda k: ops.searchsorted(k, lo[0]))(stacked)
+    # the plain route vmaps natively: no fold
+    before = dict(ops.vmap_folds)
+    torch.func.vmap(lambda q: ops.searchsorted(keys, q, "torch"))(lo)
+    assert ops.vmap_folds == before

@@ -188,3 +188,52 @@ def test_sort_merge_join_is_stable():
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert got[0][:4, 2].tolist() == [8, 6, 9, 7]
+
+
+def _slots(seed, n_slots=3, b=20):
+    """`n_slots` binding tables over (?k, ?x): ?k a predicate id, as a
+    template's constant slot is a bound column."""
+    rng = np.random.RandomState(seed)
+    table = np.stack([rng.randint(P, P + 4, (n_slots, b)),
+                      rng.randint(0, 25, (n_slots, b))], -1).astype(np.int32)
+    return (torch.as_tensor(table), torch.as_tensor(rng.rand(n_slots, b) < 0.8),
+            torch.zeros(n_slots, dtype=torch.int32))
+
+
+def _per_slot_equal(step, slots):
+    """`step` (Bindings -> Bindings) under torch.func.vmap over the slots
+    equals `step` on each slot alone."""
+    table, valid, ovf = slots
+    vars_ = ("?k", "?x")
+
+    def one(t, v, o):
+        out = step(tms.Bindings(vars_, t, v, o))
+        return out.table, out.valid, out.overflow
+
+    got = torch.func.vmap(one)(table, valid, ovf)
+    for i in range(table.shape[0]):
+        want = one(table[i], valid[i], ovf[i])
+        for g, w in zip(got, want):
+            assert torch.equal(g[i], w)
+
+
+@pytest.mark.parametrize("impl", ["torch", "kernel"])
+def test_multiway_step_vmaps_with_a_slot_in_the_prefix(impl):
+    """A template's constant slot is a bound column, so it can be a
+    secondary prefix component of a star pattern: its filter column is
+    per slot, which an in-place write into a shared zero tensor cannot
+    hold under vmap."""
+    _, ts, _ = _stores(0)
+    star = [Pattern("?x", "?k", "?a"), Pattern("?x", P + 1, "?b")]
+    _per_slot_equal(lambda bnd: tms.multiway_step(
+        bnd, [pattern_from(p) for p in star], ts.flat_keys(0), 8, 64, impl),
+        _slots(1))
+
+
+@pytest.mark.parametrize("impl", ["torch", "kernel"])
+def test_mapsin_step_vmaps_with_a_slot_residual(impl):
+    """The slot as a residual filter (residual_values) under vmap."""
+    _, ts, _ = _stores(0)
+    pat = pattern_from(Pattern("?x", "?q", "?k"))
+    _per_slot_equal(lambda bnd: tms.mapsin_step(
+        bnd, pat, ts.flat_keys(0), 8, 64, impl), _slots(2))
