@@ -43,8 +43,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
                the device's busy share over a replay, an escalating run
                against the oracle, and a traced replay whose Chrome
                trace (build/TRACE_serving.json) validates;
-  6. exactness — row sets against the oracle at small scale;
-  7. LM serving at full width — yi-6b (32 layers, d 4096, bf16) with
+  6. ingest  — the durable mutable store (store/) on the card, as the
+               JAX package's loading bench drives it, at the main path's
+               scale: half the main path's triples preloaded and flushed,
+               the rest in 4 waves (overlay limit 2^16, one shard) into a
+               store under build/ingest/ (real fsyncs), Q1/Q4 served
+               between waves by a ServeEngine (max_batch 8, the bench's
+               caps) beside the main path's store under an identical
+               engine; every refresh of the device views (two
+               searchsorted launches an index) timed and held bit for
+               bit against the numpy merge; preload and wave triples/s,
+               flush s, qps of both stores, overlay_qps_ratio, p99,
+               host time by function, peak memory; every LUBM query on
+               the mutable store (impl="kernel" and "torch") equal to
+               the main path's; the kernel timed at the merge's shapes;
+               recovery at scale exact; a SIGKILL canary (a child
+               process, `--crash-child`) and a DurabilityFaultPlan crash
+               each recovered to a prefix holding every ack;
+  7. exactness — row sets against the oracle at small scale;
+  8. LM serving at full width — yi-6b (32 layers, d 4096, bf16) with
                weights from the seed: a batch of 4 prompts of 4000 tokens
                prefilled and 32 tokens decoded greedily through
                launch/serve.py's loop with attention_impl="kernel" (32
@@ -55,7 +72,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
                layer's own (q, k, v) beside SDPA, with its TFLOP/s, its
                share of the bound and both errors (absolute and per
                row) against the plain version;
-  8. summary  — the kernels line, the memory line, the card line, and the
+  9. summary  — the kernels line, the memory line, the card line, and the
                result line as the last line.
 It needs a CUDA device and the repository's src/ beside it.
 """
@@ -646,8 +663,8 @@ def run_main_path(torch, args, failures: list) -> dict:
         if name in plans:
             profile_query(torch, lambda p=plans[name]: execute_local(
                 store, p, cfg=kern), name)
-    return dict(store=store, d=d, plans=plans, launches=main_launches,
-                per_query=per_query)
+    return dict(store=store, d=d, triples=triples, plans=plans,
+                launches=main_launches, per_query=per_query)
 
 
 def profile_query(torch, run, name: str, reps: int = 3) -> None:
@@ -1096,7 +1113,517 @@ def run_engine_serving(torch, args, lubm: dict, failures: list) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: exactness against the oracle
+# phase 6: the durable mutable store, ingesting while it serves
+# ---------------------------------------------------------------------------
+
+# the JAX package's loading bench (benchmarks/bench_loading.py): its
+# ingest-while-serving parameters and caps, and its SIGKILL canary
+INGEST_CAPS = dict(scan_cap=1 << 15, out_cap=1 << 15, probe_cap=64,
+                   row_cap=64)
+INGEST_WAVES, INGEST_PRELOAD, INGEST_OVERLAY_LIMIT = 4, 0.5, 1 << 16
+INGEST_QUERIES, INGEST_PER_WAVE, INGEST_MAX_BATCH = ("Q1", "Q4"), 24, 8
+CANARY_SHARDS, CANARY_OVERLAY_LIMIT, CANARY_ACKS = 2, 256, 6
+CANARY_MAX_BATCHES, CANARY_TIMEOUT_S = 5000, 180
+STORE_ARRAYS = ("keys_spo", "keys_ops", "splits_spo", "splits_ops",
+                "counts_spo", "counts_ops")
+
+
+def numpy_merge(bk, ov, num_shards: int) -> dict:
+    """One index's views the way the JAX package builds them on the host
+    (repro/store/mutable.py `_merge_index` and its `flat_keys`): the base
+    cut by `_shard_sorted` (twice: once more for the overlay's depth),
+    each row sorted from base shard + routed overlay, the flat view
+    sorted from base + overlay."""
+    import numpy as np
+
+    from repro_torch.core.planner import quantize_cap
+    from repro_torch.core.rdf import INF_KEY
+    from repro_torch.core.triple_store import _shard_sorted
+    s = num_shards
+    base_pad, base_splits, _ = _shard_sorted(bk, s)
+    cap = base_pad.shape[1]
+    assign = (np.searchsorted(_shard_sorted(bk, s)[1][1:s], ov, side="left")
+              if len(ov) else np.zeros(0, np.int64))
+    depth = int(np.bincount(assign, minlength=s).max()) if len(ov) else 0
+    width = cap + quantize_cap(max(depth, 1))
+    rows = np.full((s, width), INF_KEY, np.int64)
+    counts = np.zeros(s, np.int64)
+    splits = np.empty(s + 1, np.int64)
+    splits[0] = -1
+    for k in range(s):
+        m = np.sort(np.concatenate([bk[k * cap:min((k + 1) * cap, len(bk))],
+                                    ov[assign == k]]))
+        rows[k, :len(m)] = m
+        counts[k] = len(m)
+        splits[k + 1] = m[-1] if len(m) else splits[k]
+    splits[s] = INF_KEY
+    flat = np.full(rows.size, INF_KEY, np.int64)
+    merged = np.concatenate([bk, ov])
+    merged.sort()
+    flat[:len(merged)] = merged
+    return dict(keys=rows, splits=splits, counts=counts, flat=flat)
+
+
+def watch_refreshes(torch, st, ops, log_to: list) -> None:
+    """Time every refresh of the store's device views (both indexes, CUDA
+    events around the store's own `_merged_arrays`) and count its
+    searchsorted launches; keep its inputs and outputs in `log_to` for
+    `check_refreshes`, outside the timed window."""
+    orig = st._merged_arrays
+
+    def timed():
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        before = ops.launches["searchsorted"]
+        a.record()
+        out = orig()
+        b.record()
+        torch.cuda.synchronize()
+        log_to.append(dict(
+            ms=a.elapsed_time(b),
+            launches=ops.launches["searchsorted"] - before,
+            base=(st._bk_spo, st._bk_ops), ovl=(st._ov_spo, st._ov_ops),
+            base_dev=st._bk_dev, views=out, flat=st._flat))
+        return out
+    st._merged_arrays = timed
+
+
+def check_refreshes(torch, refreshes: list, num_shards: int) -> list:
+    """Each recorded refresh against `numpy_merge` on the same host
+    arrays: bit-identical rows, splits, counts and flat views. Adds the
+    numpy merge's host ms and its ms with the upload of the four views
+    to the card (what the JAX package's refresh does), and drops the
+    tensors."""
+    import numpy as np
+    out = []
+    for r in refreshes:
+        t0 = time.perf_counter()
+        ref = [numpy_merge(bk, ov, num_shards)
+               for bk, ov in zip(r["base"], r["ovl"])]
+        np_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for x in ref:
+            for v in x.values():
+                torch.from_numpy(v).to("cuda")
+        torch.cuda.synchronize()
+        up_ms = (time.perf_counter() - t0) * 1e3
+        equal = True
+        for i, (name, x) in enumerate(zip(("spo", "ops"), ref)):
+            for field in ("keys", "splits", "counts"):
+                got = r["views"][f"{field}_{name}"].cpu().numpy()
+                equal &= bool(np.array_equal(got, x[field]))
+            equal &= bool(np.array_equal(r["flat"][i].cpu().numpy(),
+                                         x["flat"]))
+        out.append(dict(ms=r["ms"], numpy_ms=np_ms,
+                        numpy_upload_ms=np_ms + up_ms,
+                        launches=r["launches"], equal=equal,
+                        base=len(r["base"][0]), ovl=len(r["ovl"][0]),
+                        inputs=(r["base"][0], r["base_dev"][0],
+                                r["ovl"][0])))
+    refreshes.clear()
+    return out
+
+
+def rows_canon(torch, bnd, vars_) -> set:
+    """The row set of `bnd` with its columns in the order `vars_`."""
+    from repro_torch.core import rows_set
+    got = rows_set(bnd.table, bnd.valid, len(bnd.vars))
+    if tuple(bnd.vars) != tuple(vars_):
+        perm = [list(bnd.vars).index(v) for v in vars_]
+        got = set(tuple(r[i] for i in perm) for r in got)
+    return got
+
+
+def canary_batch(rng):
+    """One batch of the canary's deterministic stream (bench_loading.py
+    `_crash_child`)."""
+    import numpy as np
+    return np.stack([rng.randint(0, 64, 32), rng.randint(0, 8, 32),
+                     rng.randint(0, 64, 32)], 1).astype(np.int32)
+
+
+def crash_child(store_dir: str, seed: int) -> int:
+    """The canary's child: the port's store on the card ingests the
+    deterministic stream and prints `acked <i>` after each fsync, until
+    the parent kills it (or the stream's bound ends)."""
+    import numpy as np
+
+    from repro_torch.store import MutableTripleStore
+    st = MutableTripleStore.create(store_dir, num_shards=CANARY_SHARDS,
+                                   overlay_limit=CANARY_OVERLAY_LIMIT,
+                                   device="cuda")
+    rng = np.random.RandomState(seed)
+    for i in range(CANARY_MAX_BATCHES):
+        st.ingest(canary_batch(rng))
+        print(f"acked {i}", flush=True)
+    st.close()
+    return 0
+
+
+def recovered_prefix(torch, st, batches_of, most: int):
+    """The number of batches of a deterministic stream whose union is
+    the recovered store's content (None if no prefix up to `most` is),
+    after checking that the store's device flat views hold that content."""
+    import numpy as np
+
+    from repro_torch.core.rdf import INF_KEY, pack3
+    got = np.sort(np.concatenate([st._bk_spo, st._ov_spo]))
+    for index, host in ((0, got),
+                        (1, np.sort(np.concatenate([st._bk_ops,
+                                                    st._ov_ops])))):
+        flat = st.flat_keys(index).cpu().numpy()
+        if not (np.array_equal(flat[:len(host)], host)
+                and bool((flat[len(host):] == INF_KEY).all())):
+            raise AssertionError(f"the device flat view {index} is not "
+                                 f"the recovered content")
+    keys = np.zeros(0, np.int64)
+    for i in range(most + 1):
+        if np.array_equal(got, keys):
+            return i
+        b = batches_of(i)
+        keys = np.union1d(keys, pack3(b[:, 0], b[:, 1], b[:, 2]))
+    return None
+
+
+def run_crash_canary(torch, args, root: Path, failures: list) -> None:
+    """bench_loading.py's SIGKILL canary with the port on the card, then
+    one in-process DurabilityFaultPlan.sample(seed) crash: each recovered
+    store holds a prefix of its batch stream with every acked batch."""
+    import signal
+    import threading
+
+    import numpy as np
+
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve import DurabilityFaultPlan, SimulatedCrash
+    from repro_torch.store import MutableTripleStore
+
+    store_dir = root / "canary"
+    child = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--crash-child",
+         str(store_dir), str(args.seed)], stdout=subprocess.PIPE, text=True,
+        cwd=str(Path(__file__).resolve().parent))
+    watchdog = threading.Timer(CANARY_TIMEOUT_S, child.kill)
+    watchdog.start()
+    acked = 0
+    try:
+        for line in child.stdout:
+            if line.startswith("acked "):
+                acked = int(line.split()[1]) + 1
+            if acked >= CANARY_ACKS:
+                break
+        child.send_signal(signal.SIGKILL)        # mid-stream, no cleanup
+        child.wait()
+    finally:
+        watchdog.cancel()
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        child.stdout.close()
+    if acked < CANARY_ACKS:
+        failures.append(f"ingest canary: the child acked {acked} batches "
+                        f"before it ended (rc {child.returncode})")
+        return
+    reg = MetricsRegistry()
+    st = MutableTripleStore.open(str(store_dir),
+                                 overlay_limit=CANARY_OVERLAY_LIMIT,
+                                 metrics=reg, device="cuda")
+    rec_ms = reg.gauge("store_recovery_seconds").value * 1e3
+    rng = np.random.RandomState(args.seed)
+    stream = []
+
+    def batches_of(i):
+        while len(stream) <= i:
+            stream.append(canary_batch(rng))
+        return stream[i]
+    prefix = recovered_prefix(torch, st, batches_of, acked + 64)
+    ok = prefix is not None and prefix >= acked
+    log(f"[ingest] canary: child killed (SIGKILL) after {acked} acks; "
+        f"recovered {st.n_triples} triples = the first {prefix} batches of "
+        f"the stream; recovery {rec_ms:.3f} ms; prefix holds every ack: {ok}")
+    st.close()
+    if not ok:
+        failures.append(f"ingest canary: acked {acked} batches, recovered "
+                        f"prefix {prefix}")
+
+    plan = DurabilityFaultPlan.sample(args.seed, horizon=8)
+    fdir = str(root / "fault")
+    st = MutableTripleStore.create(fdir, num_shards=CANARY_SHARDS,
+                                   overlay_limit=32, fault_plan=plan,
+                                   device="cuda")
+    frng = np.random.RandomState(args.seed + 1)
+    fstream = [canary_batch(frng) for _ in range(16)]
+    n_acked, crash = 0, None
+    try:
+        for b in fstream:
+            st.ingest(b)
+            n_acked += 1
+    except SimulatedCrash as e:
+        crash = str(e)
+    del st                                       # a dead process's heap
+    reg = MetricsRegistry()
+    st = MutableTripleStore.open(fdir, metrics=reg, device="cuda")
+    prefix = recovered_prefix(torch, st, lambda i: fstream[i],
+                              len(fstream) - 1)
+    ok = crash is not None and prefix is not None and prefix >= n_acked
+    log(f"[ingest] fault plan {plan.faults[0]}: {crash}; acked {n_acked} "
+        f"batches, recovered the first {prefix}; recovery "
+        f"{reg.gauge('store_recovery_seconds').value * 1e3:.3f} ms; prefix "
+        f"holds every ack: {ok}")
+    st.close()
+    if not ok:
+        failures.append(f"ingest fault plan: crash {crash!r}, acked "
+                        f"{n_acked}, recovered prefix {prefix}")
+
+
+def run_ingest(torch, args, lubm: dict, floor, failures: list) -> dict:
+    """The loading bench's ingest-while-serving on the card at the main
+    path's scale: half the main path's triples preloaded and flushed, the
+    rest in waves into a MutableTripleStore (one shard, overlay limit
+    2^16) served by a ServeEngine (Q1, Q4, max_batch 8; a warm-up a wave
+    outside the timed window, 24 timed queries a wave) beside the main
+    path's store under an identical engine. Every refresh of the device
+    views is timed and held against the numpy merge; then every LUBM
+    query on both stores, the recovery and the crash canary. Returns the
+    searchsorted launches and mismatches of the phase's path, and the
+    kernel's times at the merge's shapes."""
+    import cProfile
+    import pstats
+
+    import numpy as np
+
+    from repro_torch.core import Caps, ExecConfig, execute_local
+    from repro_torch.core.rdf import INF_KEY
+    from repro_torch.data.rdf_gen import LUBM_SPARQL
+    from repro_torch.kernels import ops
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve import ServeEngine, parse_bgp
+    from repro_torch.store import MutableTripleStore
+    from repro_torch.store.merge import base_layout, merge_index
+
+    root = Path(__file__).resolve().parent / "build" / "ingest"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        tr, d, base = lubm["triples"], lubm["d"], lubm["store"]
+        n = len(tr)
+        preload = int(n * INGEST_PRELOAD)
+        chunk = max((n - preload) // INGEST_WAVES, 1)
+        pats = {q: list(parse_bgp(LUBM_SPARQL[q], d).patterns)
+                for q in INGEST_QUERIES}
+        caps = Caps(**INGEST_CAPS)
+        if any(int(execute_local(base, p, caps=caps).overflow)
+               for p in pats.values()):
+            failures.append(f"ingest: {'/'.join(INGEST_QUERIES)} overflow "
+                            f"at the loading bench's caps")
+        log(f"[ingest] lubm_like({args.universities}): {n:,} triples; "
+            f"preload {preload:,}, {INGEST_WAVES} waves of {chunk:,}; "
+            f"overlay_limit {INGEST_OVERLAY_LIMIT}; queries "
+            f"{'/'.join(INGEST_QUERIES)} at the loading bench's caps "
+            f"{caps}; store directory {root.relative_to(root.parents[1])} "
+            f"(fsyncs on the host's disk)")
+
+        torch.cuda.reset_peak_memory_stats()
+        refreshes, flush_s = [], []
+        st = MutableTripleStore.create(str(root / "store"), num_shards=1,
+                                       overlay_limit=INGEST_OVERLAY_LIMIT,
+                                       metrics=MetricsRegistry(),
+                                       device="cuda")
+        watch_refreshes(torch, st, ops, refreshes)
+        orig_flush = st.flush
+
+        def timed_flush():
+            t0 = time.perf_counter()
+            orig_flush()
+            flush_s.append(time.perf_counter() - t0)
+        st.flush = timed_flush
+
+        # the main path: counts to 0 just before, read just after
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        st.ingest(tr[:preload])
+        preload_s = time.perf_counter() - t0
+        st.flush()
+        peak = torch.cuda.max_memory_allocated()
+        checked = check_refreshes(torch, refreshes, 1)
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServeEngine(st, d, caps=caps, max_batch=INGEST_MAX_BATCH,
+                          metrics=MetricsRegistry(), name="mutable")
+        ingest_s, recompile_s, lat = 0.0, 0.0, []
+        prof = cProfile.Profile()
+        for w in range(INGEST_WAVES):
+            lo = preload + w * chunk
+            hi = min(lo + chunk, n) if w < INGEST_WAVES - 1 else n
+            t0 = time.perf_counter()
+            prof.enable()
+            st.ingest(tr[lo:hi])
+            prof.disable()
+            ingest_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for p in pats.values():               # warm: this version
+                eng.execute([p])
+            recompile_s += time.perf_counter() - t0
+            for i in range(INGEST_PER_WAVE):
+                p = pats[INGEST_QUERIES[i % len(INGEST_QUERIES)]]
+                t0 = time.perf_counter()
+                eng.execute([p])
+                lat.append(time.perf_counter() - t0)
+            # the peak of the store's own work (the main path's store and
+            # this wave's recorded views included), not of the check's
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            checked += check_refreshes(torch, refreshes, 1)
+            torch.cuda.reset_peak_memory_stats()
+        ingest_launches = ops.launches["searchsorted"]
+        if not (st.n_triples > 0 and st.overlay_depth > 0):
+            failures.append("ingest: the timed waves did not serve from a "
+                            "populated overlay")
+
+        for i, r in enumerate(checked):
+            log(f"[ingest] refresh {i}: base {r['base']:,} + overlay "
+                f"{r['ovl']:,} keys a view: device merge (both indexes) "
+                f"{r['ms']:.3f} ms, searchsorted launches {r['launches']}; "
+                f"numpy merge {r['numpy_ms']:.3f} ms, with the upload "
+                f"{r['numpy_upload_ms']:.3f} ms; bit-identical {r['equal']}")
+        bad = [i for i, r in enumerate(checked) if not r["equal"]]
+        if bad:
+            failures.append(f"ingest: device merges {bad} differ from the "
+                            f"numpy merge")
+        # two rank-finds an index where both sides hold keys, none where
+        # one is empty (a copy)
+        want = [4 if r["base"] and r["ovl"] else 0 for r in checked]
+        if [r["launches"] for r in checked] != want or not any(want):
+            failures.append(f"ingest: searchsorted launches per refresh "
+                            f"{[r['launches'] for r in checked]}, expected "
+                            f"{want}")
+        ingested = n - preload
+        mut_qps = len(lat) / sum(lat)
+        p99_ms = float(np.percentile(np.array(lat) * 1e3, 99))
+
+        beng = ServeEngine(base, d, caps=caps, max_batch=INGEST_MAX_BATCH,
+                           metrics=MetricsRegistry(), name="immutable")
+        for p in pats.values():
+            beng.execute([p])
+        blat = []
+        for i in range(INGEST_PER_WAVE * INGEST_WAVES):
+            p = pats[INGEST_QUERIES[i % len(INGEST_QUERIES)]]
+            t0 = time.perf_counter()
+            beng.execute([p])
+            blat.append(time.perf_counter() - t0)
+        imm_qps = len(blat) / sum(blat)
+        log(f"[ingest] preload {preload / preload_s:,.0f} triples/s "
+            f"({preload:,} in {preload_s:.3f} s); waves "
+            f"{ingested / ingest_s:,.0f} triples/s ({ingested:,} in "
+            f"{ingest_s:.3f} s); flushes {st.flush_count} ("
+            + ", ".join(f"{s:.3f}" for s in flush_s) + " s); recompile "
+            f"{recompile_s:.3f} s; overlay depth {st.overlay_depth:,}; "
+            f"n_triples {st.n_triples:,}; searchsorted launches "
+            f"{ingest_launches} over the path; peak memory {peak} bytes "
+            f"({peak / 2 ** 30:.3f} GiB)")
+        log(f"[ingest] serving: mutable {mut_qps:.1f} queries/s, p99 "
+            f"{p99_ms:.3f} ms; immutable {imm_qps:.1f} queries/s, p99 "
+            f"{float(np.percentile(np.array(blat) * 1e3, 99)):.3f} ms; "
+            f"overlay_qps_ratio {mut_qps / imm_qps:.3f}")
+        bk, base_dev, ovl = checked[-1]["inputs"]
+        layout = base_layout(bk, 1)
+        profile_query(torch, lambda: merge_index(base_dev, layout, ovl),
+                      f"device merge of one index (base {len(bk):,} + "
+                      f"overlay {len(ovl):,} keys)")
+        stats = pstats.Stats(prof)
+        top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:8]
+        log("[ingest] host time of the wave ingests by function (cProfile, "
+            "own time): " + "; ".join(
+                f"{Path(f).name}:{ln}({fn}) {tt:.3f} s x{nc}"
+                for (f, ln, fn), (_, nc, tt, _ct, _) in top))
+
+        # gates: the views, every LUBM query, the engine's rows
+        same_flat = True
+        for index in (0, 1):
+            want = base.flat_keys(index)
+            got = st.flat_keys(index)
+            same_flat &= bool(torch.equal(got[:want.numel()], want)
+                              and bool((got[want.numel():] == INF_KEY).all()))
+        if not same_flat or st.n_triples != base.n_triples:
+            failures.append("ingest: the mutable store's flat views differ "
+                            "from the main path's")
+        big = Caps(**CAPS_MAIN)
+        differ = []
+        for name, text in LUBM_SPARQL.items():
+            q = list(parse_bgp(text, d).patterns)
+            want = execute_local(base, q, cfg=ExecConfig(impl="kernel"),
+                                 caps=big)
+            wrows = rows_canon(torch, want, want.vars)
+            for impl in ("kernel", "torch"):
+                got = execute_local(st, q, cfg=ExecConfig(impl=impl),
+                                    caps=big)
+                if (rows_canon(torch, got, want.vars) != wrows
+                        or int(got.overflow) != int(want.overflow)):
+                    differ.append(f"{name}/{impl}")
+        if differ:
+            failures.append(f"ingest: queries on the mutable store differ "
+                            f"from the main path's: {differ}")
+        eng_ok = True
+        for name, p in pats.items():
+            res = eng.execute([p])[0]
+            lm = rows_canon(torch, execute_local(st, p, caps=caps), res.vars)
+            li = rows_canon(torch, execute_local(base, p, caps=caps),
+                            res.vars)
+            eng_ok &= res.rows_set() == lm == li
+        if not eng_ok:
+            failures.append("ingest: the engine's Q1/Q4 rows differ from "
+                            "execute_local on the stores")
+        log(f"[ingest] gates: flat views equal the main path's (real keys, "
+            f"INF tail) {same_flat}; {len(LUBM_SPARQL)} LUBM queries x "
+            f"(kernel, torch) equal to the main path's rows and overflow: "
+            f"{not differ}; engine Q1/Q4 = execute_local on both stores: "
+            f"{eng_ok}; device merges bit-identical {len(checked) - len(bad)}"
+            f"/{len(checked)}")
+
+        # recovery at scale
+        before = {a: getattr(st, a) for a in STORE_ARRAYS}
+        before_flat = st._flat
+        st.close()
+        reg = MetricsRegistry()
+        st2 = MutableTripleStore.open(str(root / "store"),
+                                      overlay_limit=INGEST_OVERLAY_LIMIT,
+                                      metrics=reg, device="cuda")
+        rec_s = reg.gauge("store_recovery_seconds").value
+        rec_ok = (all(torch.equal(getattr(st2, a), v)
+                      for a, v in before.items())
+                  and all(torch.equal(a, b)
+                          for a, b in zip(st2._flat, before_flat)))
+        log(f"[ingest] recovery: store_recovery_seconds {rec_s:.6f} "
+            f"({rec_s * 1e3:.3f} ms) for {st2.n_triples:,} triples (WAL "
+            f"replays {st2.overlay_depth:,} overlay keys); index tensors "
+            f"equal to before the close: {rec_ok}")
+        if not rec_ok:
+            failures.append("ingest: the reopened store's index tensors "
+                            "differ from before the close")
+        st2.close()
+        del st, st2, eng, before, before_flat
+
+        # the kernel at the merge's shapes: the last refresh's base into
+        # its overlay and the overlay into the base
+        ovl_dev = torch.from_numpy(ovl).to("cuda")
+        timings, mism = {}, len(bad)
+        for label, keys, q in (("base into overlay", ovl_dev, base_dev),
+                               ("overlay into base", base_dev, ovl_dev)):
+            got = ops.searchsorted(keys, q, "kernel")
+            if not torch.equal(got, ops.searchsorted(keys, q, "torch")):
+                mism += 1
+                failures.append(f"ingest: searchsorted {label} differs "
+                                f"from its plain version")
+            timings[label] = time_searchsorted(
+                torch, ops, floor, keys, q, f"merge, {label}")
+
+        run_crash_canary(torch, args, root, failures)
+        return dict(launches=ingest_launches, mismatches=mism,
+                    merge_timings=timings)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: exactness against the oracle
 # ---------------------------------------------------------------------------
 
 
@@ -1128,7 +1655,7 @@ def check_oracle(torch, failures: list) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: LM serving at full width
+# phase 8: LM serving at full width
 # ---------------------------------------------------------------------------
 
 
@@ -1326,6 +1853,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--universities", type=int, default=400)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--crash-child", nargs=2, metavar=("DIR", "SEED"),
+                    help="run the ingest phase's crash canary child")
     args = ap.parse_args()
 
     if not (SRC / "repro_torch" / "__init__.py").exists():
@@ -1338,6 +1867,8 @@ def main() -> int:
               "needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    if args.crash_child:
+        return crash_child(args.crash_child[0], int(args.crash_child[1]))
     from repro_torch.core import rdf
     from repro_torch.kernels import _build, ops
 
@@ -1378,7 +1909,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     try:
         main_run = run_main_path(torch, args, failures)
-        lubm = dict(store=main_run["store"], d=main_run["d"])
+        lubm = dict(store=main_run["store"], d=main_run["d"],
+                    triples=main_run["triples"])
         kernels = time_kernels(torch, main_run, fuzz, floor)
         for k in kernels:
             if k["mismatches"]:
@@ -1399,9 +1931,29 @@ def main() -> int:
             run_engine_serving(torch, args, lubm, failures)
         except Exception:
             failures.append(f"phase engine serving:\n{traceback.format_exc()}")
+    t_phase = phase_done("engine serving", t_phase)
+
+    # the mutable store over the main path's triples, beside its store
+    ingest = None
+    if lubm is None:
+        failures.append("phase ingest: no LUBM store from the main path")
+    else:
+        try:
+            ingest = run_ingest(torch, args, lubm, floor, failures)
+        except Exception:
+            failures.append(f"phase ingest:\n{traceback.format_exc()}")
+    ss = next((k for k in kernels if k["name"] == "searchsorted"), None)
+    if ingest is not None and ss is not None:
+        ss["launches"] += ingest["launches"]
+        ss["ingest_launches"] = ingest["launches"]
+        ss["mismatches"] += ingest["mismatches"]
+        ss["merge_shapes"] = {
+            label: {k: t[k] for k in ("ms", "library_ms", "plain_ms",
+                                      "floor_ms", "bound_ms")}
+            for label, t in ingest["merge_timings"].items()}
     del lubm
     torch.cuda.empty_cache()
-    t_phase = phase_done("engine serving", t_phase)
+    t_phase = phase_done("ingest", t_phase)
 
     try:
         check_oracle(torch, failures)
