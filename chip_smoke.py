@@ -60,8 +60,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
                recovery at scale exact; a SIGKILL canary (a child
                process, `--crash-child`) and a DurabilityFaultPlan crash
                each recovered to a prefix holding every ack;
-  7. exactness — row sets against the oracle at small scale;
-  8. LM serving at full width — yi-6b (32 layers, d 4096, bf16) with
+  7. distributed — the main path's triples in an 8-shard store on a
+               LocalMesh(8) (eight region servers in one process, one
+               thread a shard, on the one card): every LUBM query through
+               execute_sharded, mapsin on routings a2a and broadcast x
+               impl "kernel" and "torch" and the reduce-side baseline,
+               each against execute_local on the main path's store (rows;
+               mapsin overflow 0; reduce overflow reported), per-query
+               caps read off the plan's measured step sizes, wall ms,
+               static payload bytes a shard, searchsorted launches and
+               peak memory a query; searchsorted timed and held bit for
+               bit at the answer phase's own inputs; the serving bench's
+               sharded stream (160 requests, a2a, max_batch 16) through
+               ServeEngine(mesh=...) against the sequential
+               execute_sharded loop and execute_local; its 1% FaultPlan
+               row and the drop + corrupt canary (no wrong row in a
+               complete result); the sharded engine over an 8-shard
+               MutableTripleStore across ingests (cut to lubm_like(4))
+               against the oracle;
+  8. exactness — row sets against the oracle at small scale;
+  9. LM serving at full width — yi-6b (32 layers, d 4096, bf16) with
                weights from the seed: a batch of 4 prompts of 4000 tokens
                prefilled and 32 tokens decoded greedily through
                launch/serve.py's loop with attention_impl="kernel" (32
@@ -72,7 +90,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
                layer's own (q, k, v) beside SDPA, with its TFLOP/s, its
                share of the bound and both errors (absolute and per
                row) against the plain version;
-  9. summary  — the kernels line, the memory line, the card line, and the
+  10. summary — the kernels line, the memory line, the card line, and the
                result line as the last line.
 It needs a CUDA device and the repository's src/ beside it.
 """
@@ -551,19 +569,19 @@ def fuzz_flash_attention(torch, ops, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def first_call_args(ops, name: str, run) -> dict:
-    """The arguments the main path gives the wrapper `ops.<name>` on its
-    first call during `run()`, by name: the wrapper is swapped for one
-    that records its arguments and calls through, then restored."""
+def all_call_args(ops, name: str, run) -> list:
+    """The arguments of every call of the wrapper `ops.<name>` during
+    `run()`, in order, by name: the wrapper is swapped for one that
+    records its arguments and calls through, then restored (the shards
+    of a mesh call it from threads of their own)."""
     orig = getattr(ops, name)
     sig = inspect.signature(orig)
     seen = []
 
     def record(*a, **kw):
-        if not seen:
-            bound = sig.bind(*a, **kw)
-            bound.apply_defaults()
-            seen.append(dict(bound.arguments))
+        bound = sig.bind(*a, **kw)
+        bound.apply_defaults()
+        seen.append(dict(bound.arguments))
         return orig(*a, **kw)
 
     setattr(ops, name, record)
@@ -572,8 +590,14 @@ def first_call_args(ops, name: str, run) -> dict:
     finally:
         setattr(ops, name, orig)
     if not seen:
-        raise RuntimeError(f"the main path never called ops.{name}")
-    return seen[0]
+        raise RuntimeError(f"the run never called ops.{name}")
+    return seen
+
+
+def first_call_args(ops, name: str, run) -> dict:
+    """The arguments the main path gives the wrapper `ops.<name>` on its
+    first call during `run()`, by name (`all_call_args`)."""
+    return all_call_args(ops, name, run)[0]
 
 
 def run_main_path(torch, args, failures: list) -> dict:
@@ -1623,7 +1647,574 @@ def run_ingest(torch, args, lubm: dict, floor, failures: list) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: exactness against the oracle
+# phase 7: the distributed path, eight region shards on the card
+# ---------------------------------------------------------------------------
+
+# the JAX package's distributed benches at their shard count
+# (benchmarks/bench_distributed.py NUM_SHARDS, bench_serving.py
+# SHARDED_SHARDS): eight region servers in one process, on one card
+DIST_SHARDS = 8
+DIST_RUNS = 5                  # timed runs of a (query, routing), median
+# the sharded serving stream (bench_serving.py _sharded_mesh_main): its
+# shapes, 160 requests drawn from 3 variants a shape, the serving caps,
+# max_batch 16, routing a2a, escalation off
+SHARDED_SHAPES = ("lubm_q1", "lubm_q3", "lubm_q5", "lubm_q13", "lubm_q4star")
+SHARDED_REQUESTS, SHARDED_VARIANTS = 160, 3
+# the sharded engine over a mutable store checks cache and layout handling
+# across ingests, not scale: lubm_like(4) in 4 shuffled waves, overlay
+# limit 2^11 a shard (flushes from the second wave on)
+DIST_MUTABLE_SCALE, DIST_MUTABLE_WAVES = 4, 4
+DIST_MUTABLE_LIMIT = 1 << 11
+DIST_MUTABLE_QUERIES = ("Q1", "Q3", "Q4", "Q5", "Q13")
+DIST_MUTABLE_CAPS = dict(out_cap=1 << 12, probe_cap=128, row_cap=64)
+
+
+def dist_caps(caps_main: dict, stats: list, num_shards: int) -> tuple:
+    """(mapsin caps, reduce caps, broadcast bytes) of one query for the
+    sharded runs, from its instrumented run on the main path's store.
+
+    out_cap holds the query's largest step output: a shard never holds
+    more rows of a step than the whole query does. probe_cap and row_cap
+    stay the main path's, so the planner picks the same operators (a2a's
+    are then embedded from measurement). The broadcast step holds about
+    S^2 x out_cap x cap x 8 bytes across the mesh (the all-gathered
+    probes' gathered keys); that is the reckoning. The reduce side scans
+    each relation whole on its shard (scan_cap holds the largest) and
+    ships rows in buckets of 2R/S, at most 2^13 a destination, so that its
+    sort-merge expansion (S x bucket_cap x probe_cap rows a shard) stays
+    near 8.4 M rows a shard; a relation past that overflows, as the
+    reference's does at its bench caps, and is reported."""
+    from repro_torch.core import Caps
+    from repro_torch.core.planner import quantize_cap
+    out_cap = quantize_cap(max([st["n_out"] for st in stats] + [8]))
+    caps = Caps(scan_cap=out_cap, out_cap=out_cap,
+                probe_cap=caps_main["probe_cap"],
+                row_cap=caps_main["row_cap"])
+    joins = [st for st in stats if st["kind"] != "scan"]
+    rel = max([st["relation"] for st in joins] + [8])
+    rcaps = Caps(scan_cap=quantize_cap(rel), out_cap=out_cap,
+                 probe_cap=caps_main["probe_cap"],
+                 row_cap=caps_main["row_cap"],
+                 bucket_cap=min(quantize_cap(-(-2 * rel // num_shards)),
+                                1 << 13))
+    cap = max([caps.row_cap if st["kind"] == "multiway" else caps.probe_cap
+               for st in joins] + [0])
+    return caps, rcaps, num_shards ** 2 * out_cap * cap * 8
+
+
+def dist_payload_bytes(plan, routing: str, num_shards: int) -> int:
+    """Static bytes one shard ships per execution through the probe
+    collectives, from the plan's own step caps (bench_distributed.py's
+    payload_bytes; the local block never crosses the network)."""
+    from repro_torch.core.bgp import a2a_step_payload_bytes
+    from repro_torch.core.distributed import auto_bucket_cap
+    s, total = num_shards, 0
+    for st in plan.steps:
+        if st.kind == "scan":
+            continue
+        b = st.caps.out_cap
+        cap = st.caps.row_cap if st.kind == "multiway" else st.caps.probe_cap
+        if routing == "a2a":
+            bc = st.caps.a2a_bucket_cap or auto_bucket_cap(b, s)
+            total += a2a_step_payload_bytes(bc, cap, s)
+        else:
+            total += ((s - 1) * b * (8 + 8 + 24) + (s - 1) * s * b * 4
+                      + (s - 1) * b * cap * 8)
+    return total
+
+
+def counted(torch, ops, tally: dict, run):
+    """``run()`` alone with the launch counts: they are set to 0 just
+    before it and read just after, and added to `tally`. Only runs of the
+    distributed path (execute_sharded, the sharded engine) go through
+    here; their checks, oracles, ingests and timed repeats run outside, so
+    `tally` counts the path's launches and nothing else. Returns
+    (run's result, its searchsorted launches)."""
+    ops.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    for k, v in ops.launches.items():
+        tally[k] = tally.get(k, 0) + v
+    return out, ops.launches["searchsorted"]
+
+
+def run_distributed(torch, args, lubm: dict, floor, failures: list) -> dict:
+    """The distributed path on the card: an 8-shard store of the main
+    path's triples on a LocalMesh(8) (eight region servers, one card).
+    (a) every LUBM query through execute_sharded, mapsin on both routings
+    x impl "kernel" and "torch", and the reduce-side baseline, held
+    against execute_local on the main path's store; (b) the sharded
+    serving stream through ServeEngine(mesh=...) against the sequential
+    execute_sharded loop; (c) the 1% fault rows and the drop + corrupt
+    canary; (d) the sharded engine over a MutableTripleStore(8 shards)
+    across ingests, against the oracle. Returns the searchsorted launches
+    of the path's counted runs (`counted`), the mismatches of the phase
+    and the kernel's times at the answer phase's shapes."""
+    from repro_torch.core import (Caps, ExecConfig, LocalMesh, build_store,
+                                  compile_plan, execute_local,
+                                  execute_sharded)
+    from repro_torch.data.rdf_gen import LUBM_SPARQL
+    from repro_torch.kernels import ops
+    from repro_torch.serve import parse_bgp
+
+    dev = "cuda"
+    card = nvidia_smi_line()
+    S = DIST_SHARDS
+    tr, d, base = lubm["triples"], lubm["d"], lubm["store"]
+    t0 = time.perf_counter()
+    store = build_store(tr, num_shards=S, device=dev)
+    mesh = LocalMesh(S, device=dev)
+    torch.cuda.synchronize()
+    log(f"[dist] lubm_like({args.universities}): {store.n_triples:,} "
+        f"triples in {S} region shards of {store.shard_cap:,} keys an "
+        f"index, LocalMesh({S}) on {mesh.device} (one thread a shard, one "
+        f"stream); build_store {time.perf_counter() - t0:.1f} s ({card})")
+    kern = ExecConfig(impl="kernel")
+    mism = 0
+    tally = {"a": {}, "b-c": {}, "d": {}}
+
+    # (a) execute_sharded, query by query: each checked run counted alone
+    t_a = time.perf_counter()
+    per_query, answer_inputs = {}, {}
+    for name, text in LUBM_SPARQL.items():
+        pats = list(parse_bgp(text, d).patterns)
+        stats: list = []
+        wb = execute_local(base, compile_plan(base, pats, Caps(**CAPS_MAIN)),
+                           cfg=kern, stats=stats)
+        want = rows_canon(torch, wb, wb.vars)
+        caps, rcaps, bcast_bytes = dist_caps(CAPS_MAIN, stats, S)
+        torch.cuda.reset_peak_memory_stats()
+        rec = dict(rows=len(want), caps=caps, rcaps=rcaps,
+                   bcast_bytes=bcast_bytes)
+        sets = {}
+        for routing in ("a2a", "broadcast"):
+            # timed first: its warm-up run plans (and, for a2a, measures
+            # the embedded caps); the checked runs below find the plan
+            cfg = ExecConfig(impl="kernel", routing=routing)
+            rec[f"{routing}_ms"] = wall_ms(
+                torch, lambda c=cfg: execute_sharded(store, pats, mesh,
+                                                     "mapsin", c, caps=caps),
+                runs=DIST_RUNS)
+            outs = {}
+            for impl in ("kernel", "torch"):
+                cfg = ExecConfig(impl=impl, routing=routing)
+                outs[impl], rec[f"ss_{routing}_{impl}"] = counted(
+                    torch, ops, tally["a"],
+                    lambda c=cfg: execute_sharded(store, pats, mesh,
+                                                  "mapsin", c, caps=caps))
+            t, v, o, vars_ = outs["kernel"]
+            same = all(torch.equal(a, b) for a, b in
+                       zip(outs["kernel"][:3], outs["torch"][:3]))
+            ovf = int(o.sum())
+            got = rows_canon(torch, _bnd(t, v, vars_), wb.vars)
+            sets[routing] = got
+            if not same:
+                failures.append(f"dist: {name} {routing}: impl 'kernel' and "
+                                f"'torch' differ")
+            if ovf:
+                failures.append(f"dist: {name} {routing}: overflow {ovf}")
+            if got != want:
+                failures.append(f"dist: {name} {routing}: {len(got)} rows, "
+                                f"execute_local {len(want)}")
+            rec[f"{routing}_same"] = same
+            plan = compile_plan(store, pats, caps, routing=routing,
+                                num_shards=S if routing == "a2a" else 0)
+            rec[f"{routing}_payload"] = dist_payload_bytes(plan, routing, S)
+        if sets["a2a"] != sets["broadcast"]:
+            failures.append(f"dist: {name}: a2a and broadcast rows differ")
+        rec["reduce_ms"] = wall_ms(torch, lambda: execute_sharded(
+            store, pats, mesh, "reduce", kern, caps=rcaps), runs=1)
+        (t, v, o, vars_), rec["ss_reduce"] = counted(
+            torch, ops, tally["a"], lambda: execute_sharded(
+                store, pats, mesh, "reduce", kern, caps=rcaps))
+        rec["reduce_ovf"] = int(o.sum())
+        if rec["reduce_ovf"] == 0 and rows_canon(
+                torch, _bnd(t, v, vars_), wb.vars) != want:
+            failures.append(f"dist: {name} reduce: rows differ from "
+                            f"execute_local without overflow")
+        rec["peak"] = torch.cuda.max_memory_allocated()
+        rec["kinds"] = "+".join(st["kind"] for st in stats)
+        per_query[name] = rec
+        if any(st["kind"] != "scan" for st in stats):
+            answer_inputs[name] = (pats, caps)
+            for routing in ("a2a", "broadcast"):
+                if rec[f"ss_{routing}_kernel"] <= 0:
+                    failures.append(f"dist: {name} {routing}: "
+                                    f"execute_sharded never launched the "
+                                    f"searchsorted kernel")
+    t_a = time.perf_counter() - t_a
+    tag = f"({card})"
+    log(f"[dist] (a) execute_sharded, {len(per_query)} queries: "
+        f"{t_a:.1f} s; a2a/broadcast ms: median of {DIST_RUNS} after a "
+        f"warm-up; reduce ms: one run after a warm-up; ss: searchsorted "
+        f"launches of one checked kernel run, counted alone {tag}")
+    log(f"[dist] {'query':5s} {'steps':28s} {'rows':>6s} {'out_cap':>7s} "
+        f"{'a2a_ms':>9s} {'bcast_ms':>9s} {'ratio':>6s} {'reduce_ms':>9s} "
+        f"{'a2a_B':>9s} {'bcast_B':>11s} {'ss a2a/bc':>9s} {'peak_GiB':>8s}")
+    for name, r in per_query.items():
+        note = (f" reduce overflow {r['reduce_ovf']} (caps scan "
+                f"{r['rcaps'].scan_cap}, bucket {r['rcaps'].bucket_cap})"
+                if r["reduce_ovf"] else "")
+        log(f"[dist] {name:5s} {r['kinds']:28s} {r['rows']:6d} "
+            f"{r['caps'].out_cap:7d} {r['a2a_ms']:9.3f} "
+            f"{r['broadcast_ms']:9.3f} "
+            f"{r['broadcast_ms'] / r['a2a_ms']:6.2f} {r['reduce_ms']:9.3f} "
+            f"{r['a2a_payload']:9d} {r['broadcast_payload']:11d} "
+            f"{r['ss_a2a_kernel']:4d}/{r['ss_broadcast_kernel']:<4d} "
+            f"{r['peak'] / 2 ** 30:8.3f} kernel==torch "
+            f"{r['a2a_same'] and r['broadcast_same']}; broadcast "
+            f"reckoning {r['bcast_bytes'] / 2 ** 30:.3f} GiB{note} {tag}")
+    log(f"[dist] execute_sharded: kernel launches of (a)'s checked runs "
+        f"(mapsin: 2 routings x 2 impls; reduce: 1), each counted alone "
+        f"{tally['a']} {tag}")
+
+    # the kernel at the answer phase's own inputs: of the query with the
+    # widest join input, the rank-find of the shard that answers the most
+    # probes, recorded from a real run
+    name = max(answer_inputs, key=lambda n: per_query[n]["caps"].out_cap)
+    pats, caps = answer_inputs[name]
+    timings = {}
+    for routing in ("a2a", "broadcast"):
+        cfg = ExecConfig(impl="kernel", routing=routing)
+        calls = all_call_args(ops, "searchsorted", lambda: execute_sharded(
+            store, pats, mesh, "mapsin", cfg, caps=caps))
+        x = max(calls, key=lambda a: int(torch.unique(a["queries"]).numel()))
+        keys, q = x["keys"].contiguous(), x["queries"].contiguous()
+        got = ops.searchsorted(keys, q, "kernel")
+        if not torch.equal(got, ops.searchsorted(keys, q, "torch")):
+            mism += 1
+            failures.append(f"dist: searchsorted at {name}'s {routing} "
+                            f"answer phase differs from its plain version")
+        timings[f"{name} {routing} answer phase"] = time_searchsorted(
+            torch, ops, floor, keys, q,
+            f"{name}, {routing} answer phase of one shard")
+
+    # (b)-(d): the engine's runs counted alone, as in (a)
+    count = lambda part, run: counted(torch, ops, tally[part], run)
+    for part, run in (
+            ("b-c", lambda: run_sharded_serving(
+                torch, args, dict(store=store, mesh=mesh, base=base, d=d,
+                                  card=card), count, failures)),
+            ("d", lambda: run_sharded_mutable(torch, args, mesh, card,
+                                              count, failures))):
+        t0 = time.perf_counter()
+        run()
+        log(f"[dist] ({part}) {time.perf_counter() - t0:.1f} s; kernel "
+            f"launches of its sharded-engine runs, each counted alone "
+            f"{tally[part]} {tag}")
+    total = sum(t.get("searchsorted", 0) for t in tally.values())
+    if any(t.get("probe_gather", 0) for t in tally.values()):
+        failures.append("dist: a counted run launched probe_gather, which "
+                        "the distributed path never runs: the counts hold "
+                        "launches from outside the path")
+    if total <= 0:
+        failures.append("dist: the distributed path never launched the "
+                        "searchsorted kernel")
+    return dict(launches=total, mismatches=mism, answer_timings=timings)
+
+
+def _bnd(table, valid, vars_):
+    """execute_sharded's (table, valid, vars) as a Bindings for rows_canon."""
+    from repro_torch.core.mapsin import Bindings
+    return Bindings(tuple(vars_), table, valid, None)
+
+
+def run_sharded_serving(torch, args, x: dict, count, failures: list) -> None:
+    """(b) the sharded serving stream through ServeEngine(mesh=...) and
+    the per-query execute_sharded loop, every result against
+    execute_local on the main path's store; (c) the 1% fault row and the
+    drop + corrupt canary. Every checked engine run goes through
+    ``count("b-c", run)`` (`counted`)."""
+    import numpy as np
+
+    from repro_torch.core import (Caps, ExecConfig, compile_plan,
+                                  execute_local, execute_sharded)
+    from repro_torch.core.bgp import a2a_step_payload_bytes
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve import Fault, FaultPlan, ServeEngine
+
+    store, mesh, base, d, card = (x["store"], x["mesh"], x["base"], x["d"],
+                                  x["card"])
+    tag = f"({card})"
+    S = DIST_SHARDS
+    caps = Caps(**SERVE_CAPS)
+    cfg = ExecConfig(impl="kernel", routing="a2a")
+    rng = np.random.RandomState(args.seed)
+    shapes = [s for s in serving_shapes("lubm", args.universities, rng)
+              if s[0] in SHARDED_SHAPES]
+    pools = {name: [[d.pattern(*t) for t in fn()]
+                    for _ in range(SHARDED_VARIANTS)]
+             for name, _, fn in shapes}
+    names = [name for name, _, _ in shapes]
+    reqs = [pools[names[rng.randint(len(names))]][
+        rng.randint(SHARDED_VARIANTS)] for _ in range(SHARDED_REQUESTS)]
+    n = len(reqs)
+
+    def engine(**kw):
+        return ServeEngine(store, d, cfg, caps=caps, mesh=mesh,
+                           max_batch=SERVE_MAX_BATCH, max_queue=4 * n,
+                           compile_cache_size=64, max_escalations=0,
+                           metrics=MetricsRegistry(), **kw)
+
+    local = {}
+
+    def check(batch, results, label, allow_quarantine=False) -> tuple:
+        """(exact, quarantined, overflow) over `results` against
+        execute_local on the main path's store; a quarantined result
+        (fault_unrecovered) must be marked and a subset."""
+        ok = unrec = ovf = 0
+        for pats, res in zip(batch, results):
+            key = tuple(pats)
+            if key not in local:
+                bnd = execute_local(base, pats, "mapsin", cfg=cfg, caps=caps)
+                local[key] = (rows_canon(torch, bnd, bnd.vars),
+                              tuple(bnd.vars), int(bnd.overflow))
+            want, vars_, lovf = local[key]
+            got = res.rows_set(vars_)
+            ovf += res.overflow
+            if (res.stats or {}).get("fault_unrecovered"):
+                unrec += 1
+                if not (allow_quarantine and got <= want):
+                    failures.append(f"dist: {label}: a quarantined result "
+                                    f"holds rows outside execute_local's")
+            elif got == want:
+                ok += 1
+            else:
+                failures.append(f"dist: {label}: {len(got)} rows, "
+                                f"execute_local {len(want)} (overflow "
+                                f"{res.overflow}, local {lovf})")
+        return ok, unrec, ovf
+
+    eng = engine()
+    # the plans first, outside the counted runs: a2a's embedded caps come
+    # from an instrumented execute_local a distinct query (on the store,
+    # so every engine below finds them)
+    for p in {tuple(p): p for p in reqs}:
+        eng._compile(p)
+    t0 = time.perf_counter()
+    results, ss = count("b-c", lambda: eng.execute(reqs))  # warm-up + check
+    warm_s = time.perf_counter() - t0
+    ok, _, ovf = check(reqs, results, "sharded engine")
+    if ss <= 0:
+        failures.append("dist: the sharded engine's dispatches never "
+                        "launched the searchsorted kernel")
+
+    def run_seq(batch):
+        for pats in batch:
+            execute_sharded(store, pats, mesh, "mapsin", cfg, caps=caps)
+        torch.cuda.synchronize()
+
+    # warm the plans and closures: once a distinct query
+    run_seq(list({tuple(p): p for p in reqs}.values()))
+    d0, q0, p0 = eng.dispatches, eng.dispatched_queries, eng.a2a_payload_bytes
+    t0 = time.perf_counter()
+    eng.execute(reqs)
+    torch.cuda.synchronize()
+    sat_b = time.perf_counter() - t0
+    dispatches = eng.dispatches - d0
+    avg_batch = (eng.dispatched_queries - q0) / max(dispatches, 1)
+    bytes_b = (eng.a2a_payload_bytes - p0) / n
+    t0 = time.perf_counter()
+    run_seq(reqs)
+    sat_s = time.perf_counter() - t0
+
+    def seq_bytes(pats) -> int:
+        plan = compile_plan(store, pats, caps, routing="a2a", num_shards=S)
+        return sum(a2a_step_payload_bytes(
+            st.caps.a2a_bucket_cap,
+            st.caps.row_cap if st.kind == "multiway" else st.caps.probe_cap,
+            S) for st in plan.steps[1:] if st.kind in ("mapsin", "multiway"))
+    bytes_s = float(np.mean([seq_bytes(p) for p in reqs]))
+    log(f"[dist] sharded engine (bench_serving.py's sharded stream, "
+        f"{'/'.join(SHARDED_SHAPES)}, {n} requests from "
+        f"{len(local)} distinct, caps {SERVE_CAPS}, max_batch "
+        f"{SERVE_MAX_BATCH}, a2a, escalation off): {ok}/{n} equal "
+        f"execute_local, overflow {ovf}; first run {warm_s:.3f} s, "
+        f"searchsorted launches {ss} over its {eng.dispatches} dispatches; "
+        f"engine {n / sat_b:.1f} queries/s ({sat_b:.4f} s), sequential "
+        f"execute_sharded loop {n / sat_s:.1f} queries/s ({sat_s:.4f} s), "
+        f"speedup {sat_s / sat_b:.3f}x; {dispatches} dispatches, average "
+        f"batch {avg_batch:.2f}; a2a payload a query {bytes_b:.0f} B "
+        f"batched, {bytes_s:.0f} B sequential, ratio "
+        f"{bytes_b / max(bytes_s, 1e-9):.3f} {tag}")
+    profile_query(torch, lambda: eng.execute(reqs), "sharded engine replay",
+                  reps=1)
+
+    # (c) the 1% fault row: bench_serving.py's sampled plan (seed + 17,
+    # resampled until a step-0 fault exists), replayed over one epoch
+    # window from the first step-0 fault, warmed first
+    def replay(e):
+        """(results in request order, latencies, span) of one pass of
+        `reqs` through `e`, a forced step at a time."""
+        lat, now, got = [], 0.0, {}
+        ids = [e.submit(pats, arrival=0.0) for pats in reqs]
+        while e.pending():
+            t0 = time.perf_counter()
+            res = e.step(force=True)
+            torch.cuda.synchronize()
+            now += time.perf_counter() - t0
+            lat.extend(now for _ in res)
+            got.update((r.request_id, r) for r in res)
+        return [got[i] for i in ids], lat, now
+
+    fseed = args.seed + 17
+    while True:
+        fp = FaultPlan.sample(fseed, S, n_steps=2, rate=0.01, horizon=32)
+        step0 = [f.epoch for f in fp.faults if f.step == 0]
+        if step0:
+            break
+        fseed += 1
+    feng = engine(fault_plan=fp, fault_retries=4)
+    first, _ = count("b-c", lambda: feng.execute(reqs))
+    _, unrec_first, _ = check(reqs, first, "1% fault engine, first run",
+                              allow_quarantine=True)
+    start = min(step0)
+    feng.fault_epoch = start
+    (warm, _, _), _ = count("b-c", lambda: replay(feng))
+    check(reqs, warm, "1% fault window, warm-up", allow_quarantine=True)
+    feng.fault_epoch = start
+    det0, red0 = feng.corrupt_detected, feng.fault_redispatches
+    (fres, lat_f, span_f), _ = count("b-c", lambda: replay(feng))
+    detected = feng.corrupt_detected - det0
+    redisp = feng.fault_redispatches - red0
+    fok, unrec, _ = check(reqs, fres, "1% fault window",
+                          allow_quarantine=True)
+    _, lat_c, span_c = replay(eng)
+    p99 = lambda xs: float(np.percentile(np.asarray(xs) * 1e3, 99))
+    if detected <= 0:
+        failures.append("dist: the 1% fault window detected no fault")
+    log(f"[dist] 1% faults (FaultPlan.sample seed {fseed}, {len(fp.faults)} "
+        f"faults over 32 epochs, check_answers, fault_retries 4): window "
+        f"from epoch {start}: detected {detected}, redispatches {redisp}, "
+        f"{fok}/{n} equal execute_local, unrecovered {unrec} (every "
+        f"result checked; the first run, epochs 0 on: unrecovered "
+        f"{unrec_first}); {n / span_f:.1f} queries/s "
+        f"against {n / span_c:.1f} clean; p99 {p99(lat_f):.3f} ms against "
+        f"{p99(lat_c):.3f} ms clean, ratio "
+        f"{p99(lat_f) / max(p99(lat_c), 1e-9):.3f} {tag}")
+
+    # the drop + corrupt canary (bench_serving.py _chaos_mesh_main's plan:
+    # shard 0 drops at epoch 0, then a shard corrupts at epoch 1) on one
+    # dispatch of lubm_q13's variants. A dropped leg is always detected
+    # (its checksum is zeroed too); a corrupted leg only where it carries
+    # an answer (+1 on the nonzero keys of an empty block changes no bit),
+    # so the corrupting shard is the first from shard 1 on whose
+    # corruption alone this dispatch detects, probed shard by shard
+    creqs = pools["lubm_q13"]
+    probe_eng = lambda fp: ServeEngine(
+        store, d, cfg, caps=caps, mesh=mesh, max_batch=4, fault_plan=fp,
+        fault_retries=0, max_escalations=0, metrics=MetricsRegistry())
+    answering = []
+    for s in list(range(1, S)) + [0]:
+        e = probe_eng(FaultPlan((Fault(0, s, "corrupt", epoch=0),)))
+        e.execute(creqs)
+        if e.corrupt_detected:
+            answering.append(s)
+            break
+    corrupt = answering[0] if answering else 1
+    canary = FaultPlan((Fault(0, 0, "drop", epoch=0),
+                        Fault(0, corrupt, "corrupt", epoch=1)))
+    ceng = ServeEngine(store, d, cfg, caps=caps, mesh=mesh, max_batch=4,
+                       fault_plan=canary, max_escalations=0,
+                       metrics=MetricsRegistry())
+    cres, _ = count("b-c", lambda: ceng.execute(creqs))
+    cok, cunrec, _ = check(creqs, cres, "drop + corrupt canary")
+    if (ceng.corrupt_detected < S + 1 or ceng.fault_redispatches < 2
+            or cunrec or cok != len(creqs)):
+        failures.append(f"dist: canary: detected {ceng.corrupt_detected}, "
+                        f"redispatches {ceng.fault_redispatches}, "
+                        f"unrecovered {cunrec}, {cok}/{len(creqs)} exact")
+    log(f"[dist] drop + corrupt canary (shard 0 drops at epoch 0, shard "
+        f"{corrupt} corrupts at epoch 1; {len(creqs)} lubm_q13 requests, "
+        f"{ceng.dispatches} dispatch(es)): detected "
+        f"{ceng.corrupt_detected} blocks (want {S} dropped + at least 1 "
+        f"corrupted), redispatches {ceng.fault_redispatches}, "
+        f"{cok}/{len(creqs)} equal execute_local, unrecovered {cunrec} "
+        f"{tag}")
+
+
+def run_sharded_mutable(torch, args, mesh, card: str, count,
+                        failures: list) -> None:
+    """(d) the sharded engine over a MutableTripleStore of DIST_SHARDS
+    shards across ingests: after each wave every query's answer equals
+    the oracle on the acked triples (cut to lubm_like(DIST_MUTABLE_SCALE):
+    the check is of caches and layouts, not of scale). The engine's runs
+    go through ``count("d", run)`` (`counted`); the ingests' merges do
+    not."""
+    import numpy as np
+
+    from repro_torch.core import Caps, ExecConfig, execute_oracle
+    from repro_torch.data import lubm_like
+    from repro_torch.data.rdf_gen import LUBM_SPARQL
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve import ServeEngine, parse_bgp
+    from repro_torch.store import MutableTripleStore
+
+    root = Path(__file__).resolve().parent / "build" / "dist_mutable"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    tr, d, _ = lubm_like(DIST_MUTABLE_SCALE, seed=args.seed)
+    tr = tr[np.random.RandomState(args.seed).permutation(len(tr))]
+    waves = np.array_split(tr, DIST_MUTABLE_WAVES)
+    try:
+        st = MutableTripleStore.create(str(root / "store"),
+                                       num_shards=DIST_SHARDS,
+                                       overlay_limit=DIST_MUTABLE_LIMIT,
+                                       dictionary=d, device=mesh.device)
+        eng = ServeEngine(st, d, ExecConfig(impl="kernel", routing="a2a"),
+                          caps=Caps(**DIST_MUTABLE_CAPS), mesh=mesh,
+                          metrics=MetricsRegistry())
+        pats = {q: list(parse_bgp(LUBM_SPARQL[q], d).patterns)
+                for q in DIST_MUTABLE_QUERIES}
+        acked, lines, ok = [], [], 0
+        for w, batch in enumerate(waves):
+            t0 = time.perf_counter()
+            st.ingest(batch)
+            ingest_s = time.perf_counter() - t0
+            acked.append(batch)
+            # the plans of this store version first, outside the counted
+            # run (a2a's embedded caps come from an instrumented
+            # execute_local); the engine's plan order keeps the oracle
+            # tractable
+            orders = {q: eng._compile(tuple(p)).patterns
+                      for q, p in pats.items()}
+            t0 = time.perf_counter()
+            results, ss = count("d", lambda: eng.execute(list(pats.values())))
+            serve_s = time.perf_counter() - t0
+            if ss <= 0:
+                failures.append(f"dist: mutable wave {w}: the sharded "
+                                f"engine never launched the searchsorted "
+                                f"kernel")
+            now = np.concatenate(acked)
+            for q, res in zip(pats, results):
+                want, ovars = execute_oracle(now, orders[q])
+                if res.rows_set(ovars) != want or res.overflow:
+                    failures.append(f"dist: mutable wave {w} {q}: "
+                                    f"{len(res.rows)} rows, oracle "
+                                    f"{len(want)}, overflow {res.overflow}")
+                else:
+                    ok += 1
+            lines.append(f"wave {w}: +{len(batch):,} triples in "
+                         f"{ingest_s:.3f} s (version {st.store_version}, "
+                         f"flushes {st.flush_count}), {len(pats)} queries "
+                         f"in {serve_s:.3f} s")
+        st.close()
+        total = DIST_MUTABLE_WAVES * len(pats)
+        if st.flush_count == 0:
+            failures.append("dist: the mutable store never flushed")
+        log(f"[dist] sharded engine over MutableTripleStore({DIST_SHARDS} "
+            f"shards, overlay limit {DIST_MUTABLE_LIMIT}; cut to "
+            f"lubm_like({DIST_MUTABLE_SCALE}), {len(tr):,} triples in "
+            f"{DIST_MUTABLE_WAVES} shuffled waves; a2a, caps "
+            f"{DIST_MUTABLE_CAPS}): {ok}/{total} answers equal the oracle "
+            f"on the acked triples; {eng.dispatches} dispatches; "
+            + "; ".join(lines) + f" ({card})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: exactness against the oracle
 # ---------------------------------------------------------------------------
 
 
@@ -1655,7 +2246,7 @@ def check_oracle(torch, failures: list) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: LM serving at full width
+# phase 9: LM serving at full width
 # ---------------------------------------------------------------------------
 
 
@@ -1951,9 +2542,30 @@ def main() -> int:
             label: {k: t[k] for k in ("ms", "library_ms", "plain_ms",
                                       "floor_ms", "bound_ms")}
             for label, t in ingest["merge_timings"].items()}
-    del lubm
     torch.cuda.empty_cache()
     t_phase = phase_done("ingest", t_phase)
+
+    # the distributed path over the main path's triples, eight shards
+    dist = None
+    if lubm is None:
+        failures.append("phase distributed: no LUBM store from the main "
+                        "path")
+    else:
+        try:
+            dist = run_distributed(torch, args, lubm, floor, failures)
+        except Exception:
+            failures.append(f"phase distributed:\n{traceback.format_exc()}")
+    if dist is not None and ss is not None:
+        ss["launches"] += dist["launches"]
+        ss["dist_launches"] = dist["launches"]
+        ss["mismatches"] += dist["mismatches"]
+        ss["answer_shapes"] = {
+            label: {k: t[k] for k in ("ms", "library_ms", "plain_ms",
+                                      "floor_ms", "bound_ms")}
+            for label, t in dist["answer_timings"].items()}
+    del lubm
+    torch.cuda.empty_cache()
+    t_phase = phase_done("distributed", t_phase)
 
     try:
         check_oracle(torch, failures)

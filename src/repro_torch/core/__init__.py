@@ -1,7 +1,9 @@
-"""MAPSIN join engine — the paper's core contribution, on one device."""
+"""MAPSIN join engine — the paper's core contribution, on one device or a
+mesh of region shards."""
 from repro_torch.core.bgp import (  # noqa: F401
-    ExecConfig, execute_local, query_traffic, rows_set,
+    ExecConfig, execute_local, execute_sharded, query_traffic, rows_set,
 )
+from repro_torch.core.collectives import LocalMesh, ProcessGroupMesh  # noqa: F401
 from repro_torch.core.mapsin import Bindings, mapsin_step, multiway_step, scan_pattern  # noqa: F401
 from repro_torch.core.oracle import execute_oracle  # noqa: F401
 from repro_torch.core.planner import (  # noqa: F401

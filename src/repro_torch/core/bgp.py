@@ -1,11 +1,12 @@
-"""BGP executor over the planner's ``PhysicalPlan`` IR, on one device.
+"""BGP executors over the planner's ``PhysicalPlan`` IR: one device
+(``execute_local``) and a mesh of region shards (``execute_sharded``).
 
 Planning lives in ``core/planner.py``: ``compile_plan`` turns a pattern
 list into a ``PhysicalPlan`` whose steps each carry their own operator
 (``scan | mapsin | multiway | reduce_side``) and static capacities
-(``Caps``). ``execute_local`` consumes a plan; passing a raw pattern
-sequence compiles one on the spot. ``ExecConfig`` is runtime-only: kernel
-``impl`` and the ``reorder`` escape hatch.
+(``Caps``). The executors consume a plan; passing a raw pattern sequence
+compiles one on the spot. ``ExecConfig`` is runtime-only: kernel
+``impl``, collective ``routing`` and the ``reorder`` escape hatch.
 
 Execution model: the cascade — the first-pattern scan plus every step — is
 one closure per (plan, cfg), cached on the store, run eagerly on the
@@ -24,6 +25,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import distributed as dist
 from repro_torch.core import mapsin as ms
 from repro_torch.core import reduce_side as rs
 from repro_torch.core.plan import make_plan, probe_ranges, row_range
@@ -36,28 +38,38 @@ from repro_torch.core.triple_store import (TripleStore, _shard_sorted,
 from repro_torch.kernels.ops import IMPLS
 
 
+ROUTINGS = ("broadcast", "a2a")
+
+
 @dataclasses.dataclass(frozen=True)
 class ExecConfig:
     """Runtime-only knobs. ``impl="kernel"`` runs the hand-written CUDA
     kernels on the card (their plain versions on the CPU); ``"torch"``
-    forces the plain versions everywhere."""
+    forces the plain versions everywhere. ``routing`` picks the
+    distributed GET's collective: ``"broadcast"`` or ``"a2a"``
+    (point-to-point region routing)."""
     impl: str = "kernel"         # kernel | torch
+    routing: str = "broadcast"   # dist_probe collective: broadcast | a2a
     reorder: bool = True         # False = execute patterns as given
 
     def __post_init__(self):
         if self.impl not in IMPLS:
             raise ValueError(f"ExecConfig.impl must be one of {IMPLS}, "
                              f"got {self.impl!r}")
+        if self.routing not in ROUTINGS:
+            raise ValueError(f"ExecConfig.routing must be one of "
+                             f"{ROUTINGS}, got {self.routing!r}")
 
 
 def as_plan(store: TripleStore | None, query, mode: str = "mapsin",
             cfg: ExecConfig = ExecConfig(), caps: Caps = Caps(),
-            route_shards: int = 10) -> PhysicalPlan:
+            num_shards: int = 0, route_shards: int = 10) -> PhysicalPlan:
     """Resolve a query argument (PhysicalPlan | LogicalPlan | patterns)
     into a PhysicalPlan."""
     if isinstance(query, PhysicalPlan):
         return query
     return compile_plan(store, query, caps, mode=mode, reorder=cfg.reorder,
+                        routing=cfg.routing, num_shards=num_shards,
                         route_shards=route_shards)
 
 
@@ -100,6 +112,19 @@ def step_traffic_bytes(step: PlanStep, mode: str, num_shards: int,
     per_rel = s * s * step.caps.bucket_cap * 4         # rows x int32 cols
     rounds = len(step.patterns)
     return rounds * (per_rel * (nv_left + 3) + per_rel)  # + validity bytes
+
+
+def a2a_step_payload_bytes(bucket_cap: int, answer_cap: int,
+                           num_shards: int) -> int:
+    """Static per-shard a2a collective payload of ONE dist_probe round:
+    per non-local destination, the probe bucket's (lo, hi) records out
+    plus the answer return leg (answer_cap key slots + count + missed per
+    bucket slot). The local diagonal block never crosses the network and
+    is excluded. The one shared formula (the serving engine's traffic
+    accounting calls it); the per-leg split lives next to the wire format
+    itself (``distributed.a2a_leg_bytes``)."""
+    probe, answer = dist.a2a_leg_bytes(bucket_cap, answer_cap, num_shards)
+    return probe + answer
 
 
 def query_traffic(query, mode: str, caps: Caps = Caps(),
@@ -374,6 +399,119 @@ def query_traffic_actual(stats: list, mode: str, num_shards: int,
             scanned += st["n_in"] * rounds * logn * 8 + st["n_out"] * 8
     return {"network": net, "scanned": scanned, "total": net + scanned,
             "probe_bytes_routed": routed, "probe_bytes_broadcast": broadcast}
+
+
+# ---------------------------------------------------------------------------
+# Distributed executor (a mesh of region shards, core/collectives.py)
+# ---------------------------------------------------------------------------
+
+
+def apply_dist_step(bnd: ms.Bindings, st: PlanStep, keys, splits,
+                    cfg: ExecConfig, comm, batched: bool = False,
+                    fault=None, with_check: bool = False):
+    """One distributed MAPSIN cascade step (join or multiway star) at the
+    step's OWN caps — the shared dispatch behind execute_sharded's
+    per-shard body and the serving engine's batched template cascade
+    (`batched=True` expects Bindings with a leading query axis and routes
+    the whole batch through ONE collective round per step).
+    `fault`/`with_check` hook the a2a answer-leg integrity machinery
+    (serve/faults.py): with_check returns ``(Bindings, bad)`` and
+    requires the batched a2a path."""
+    c = st.caps
+    extra = ({"fault": fault, "with_check": with_check}
+             if batched and (fault is not None or with_check) else {})
+    if st.kind == "multiway":
+        fn = (dist.batched_dist_multiway_step if batched
+              else dist.dist_multiway_step)
+        return fn(bnd, st.patterns, keys, c.row_cap, c.out_cap, comm,
+                  cfg.impl, shard_splits=splits, routing=cfg.routing,
+                  bucket_cap=c.a2a_bucket_cap, **extra)
+    fn = dist.batched_dist_mapsin_step if batched else dist.dist_mapsin_step
+    return fn(bnd, st.patterns[0], keys, c.probe_cap, c.out_cap, comm,
+              cfg.impl, shard_splits=splits, routing=cfg.routing,
+              bucket_cap=c.a2a_bucket_cap, **extra)
+
+
+
+def _sharded_fn(plan: PhysicalPlan, cfg: ExecConfig, splits_spo=None,
+                splits_ops=None):
+    """The per-shard body of `plan`: (comm, this shard's keys_spo row,
+    keys_ops row) -> (table (out_cap, nv), valid, overflow (1,)). The
+    splits are the store's device tensors, taken once per closure."""
+    steps = plan.steps
+
+    def fn(comm, keys_spo, keys_ops):
+        keys_spo = keys_spo.reshape(-1)
+        keys_ops = keys_ops.reshape(-1)
+        keys_of = lambda pat, dom: (keys_spo if make_plan(pat, dom).index == 0
+                                    else keys_ops)
+        splits_of = lambda pat, dom: (splits_spo
+                                      if make_plan(pat, dom).index == 0
+                                      else splits_ops)
+        bnd = ms.scan_pattern(steps[0].patterns[0],
+                              keys_of(steps[0].patterns[0], ()),
+                              steps[0].caps.out_cap, cfg.impl)
+        for st in steps[1:]:
+            c = st.caps
+            if st.kind in ("mapsin", "multiway"):
+                keys = keys_of(st.patterns[0], bnd.vars)
+                bnd = apply_dist_step(
+                    bnd, st, keys, splits_of(st.patterns[0], bnd.vars),
+                    cfg, comm)
+            else:
+                for pat in st.patterns:
+                    keys = keys_of(pat, ())  # relation scan: empty domain
+                    bnd = rs.dist_reduce_step(bnd, pat, keys, c.scan_cap,
+                                              c.bucket_cap, c.probe_cap,
+                                              c.out_cap, comm, cfg.impl)
+        return bnd.table, bnd.valid, bnd.overflow[None]
+    return fn
+
+
+def execute_sharded(store: TripleStore, query, mesh, mode: str = "mapsin",
+                    cfg: ExecConfig = ExecConfig(), axis: str = "data",
+                    routing: str | None = None, caps: Caps = Caps()):
+    """Distributed execution on `mesh` (``core/collectives.py``; the store
+    sharded to the mesh size on `axis`, shard s holding row s of the
+    store's key arrays). `query` is a PhysicalPlan or a pattern sequence
+    (compiled cost-based with num_shards = the mesh size, so a2a
+    capacities are embedded from measurement at compile time). Probes are
+    routed via the stored region splits: with cfg.routing == "broadcast"
+    every shard sees every probe and answers only ranges intersecting its
+    slice; with "a2a" each probe record is shipped point-to-point to
+    exactly the intersecting shards. `routing` overrides cfg.routing when
+    given. Returns (table (S*cap, nv), valid, overflow (S,), vars)."""
+    if routing is not None:
+        cfg = dataclasses.replace(cfg, routing=routing)
+    _check_plan_mode(query, mode)
+    s = int(mesh.shape[axis])
+    if store.num_shards != s:
+        raise ValueError(f"store has {store.num_shards} shards but mesh "
+                         f"axis {axis!r} has {s}")
+    if mesh.device != store.device:
+        raise ValueError(f"the mesh runs on {mesh.device}, the store is on "
+                         f"{store.device}")
+    plan = as_plan(store, query, mode, cfg, caps, num_shards=s)
+    if (cfg.routing == "a2a"
+            and any(st.kind in ("mapsin", "multiway")
+                    and st.caps.a2a_bucket_cap == 0
+                    for st in plan.steps[1:])):
+        # pre-compiled plan without embedded a2a caps: embed now, with the
+        # drop-free bound read off the plan's OWN steps (caps=None)
+        from repro_torch.core.planner import embed_a2a_caps
+        plan = embed_a2a_caps(store, plan, None, s)
+    # one closure per (plan, cfg, mesh), cached on the store
+    ck = ("sharded", plan, cfg, axis, mesh.fingerprint(axis))
+    fn = store.plan_cache.get(ck)
+    if fn is None:
+        fn = _sharded_fn(plan, cfg, splits_spo=store.splits_spo,
+                         splits_ops=store.splits_ops)
+        store.plan_cache[ck] = fn
+    keys_spo, keys_ops = store.keys_spo, store.keys_ops
+    outs = mesh.run(lambda comm: fn(comm, keys_spo[comm.index],
+                                    keys_ops[comm.index]))
+    table, valid, overflow = (torch.cat(x) for x in zip(*outs))
+    return table, valid, overflow, plan.var_order
 
 
 def rows_set(table, valid, n_vars: int) -> set[tuple[int, ...]]:

@@ -221,12 +221,24 @@ def multiway_step(bindings: Bindings, patterns: Sequence, keys: torch.Tensor,
                pl.prefix[0] == p0.prefix[0] for pl in plans):
         raise ValueError("multiway requires a shared primary-position join "
                          "variable")
-    dev = keys.device
     lo, hi = row_range(p0, bindings.table)
     lo = torch.where(bindings.valid, lo, 0)
     hi = torch.where(bindings.valid, hi, 0)
     k, in_row, missed = gather_range(keys, lo, hi, row_cap, impl)
+    return multiway_merge(bindings, plans, k, in_row, missed, row_cap,
+                          out_cap)
 
+
+def multiway_merge(bindings: Bindings, plans: Sequence[PatternPlan],
+                   k: torch.Tensor, in_row: torch.Tensor,
+                   missed: torch.Tensor, row_cap: int,
+                   out_cap: int) -> Bindings:
+    """The tail of the multiway star join after its row-GET (k, in_row,
+    missed) (B, row_cap): per-pattern filtering of the fetched row and
+    the iterative merge. Shared by ``multiway_step`` and the distributed
+    steps (core/distributed.py), which fetch the row through a
+    collective."""
+    dev = k.device
     out = bindings
     # row -> probe index; origins of invalid rows are the zero padding, so
     # k[cur_origin] stays in bounds

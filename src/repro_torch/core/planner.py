@@ -369,6 +369,7 @@ def compile_plan(store: TripleStore | None, patterns, caps: Caps = Caps(),
                  mode: str = "mapsin", ordering: str = "cost",
                  multiway: bool = True, reorder: bool = True,
                  operators: tuple[str, ...] = ALL_OPERATORS,
+                 routing: str = "broadcast", num_shards: int = 0,
                  route_shards: int = 10) -> PhysicalPlan:
     """The LogicalPlan -> PhysicalPlan compiler.
 
@@ -378,6 +379,12 @@ def compile_plan(store: TripleStore | None, patterns, caps: Caps = Caps(),
     the given order. `mode="reduce"` forces every join step onto the
     reduce-side operator (the paper's comparison baseline); otherwise
     operators are chosen per step, restricted to `operators`.
+
+    With `num_shards > 0` and `routing="a2a"` and `caps.a2a_bucket_cap
+    == 0`, the per-step a2a capacities are embedded from measurement
+    (``embed_a2a_caps``): one instrumented run of this plan, cached per
+    plan on the store, sizes the per-destination probe buckets and the
+    answer legs.
     """
     if isinstance(patterns, LogicalPlan):
         patterns = patterns.patterns
@@ -390,7 +397,7 @@ def compile_plan(store: TripleStore | None, patterns, caps: Caps = Caps(),
     ck = None
     if store is not None:
         ck = ("pplan", patterns, caps, mode, ordering, multiway, reorder,
-              operators, route_shards)
+              operators, routing, num_shards, route_shards)
         hit = store.plan_cache.get(ck)
         if hit is not None:
             return hit
@@ -451,6 +458,11 @@ def compile_plan(store: TripleStore | None, patterns, caps: Caps = Caps(),
     plan = PhysicalPlan(tuple(steps), tuple(var_order),
                         float(cost) if cost == cost else 0.0, chosen,
                         route_shards)
+    # a positive a2a_bucket_cap is an explicit pin (the drop-free
+    # override) — it skips the measurement pass entirely
+    if (num_shards > 0 and routing == "a2a" and mode != "reduce"
+            and caps.a2a_bucket_cap == 0 and store is not None):
+        plan = embed_a2a_caps(store, plan, caps, num_shards)
     if ck is not None:
         store.plan_cache[ck] = plan
     return plan
@@ -473,6 +485,70 @@ def _maybe_reduce_side(store: TripleStore, pat: Pattern, domain: list[str],
     if mx > caps.probe_cap and rows <= caps.scan_cap:
         return "reduce_side"
     return "mapsin"
+
+
+# ---------------------------------------------------------------------------
+# Measured a2a capacity embedding
+# ---------------------------------------------------------------------------
+
+
+def embed_a2a_caps(store: TripleStore, plan: PhysicalPlan,
+                   caps: Caps | None, num_shards: int) -> PhysicalPlan:
+    """Embed measured a2a capacities into every join step of `plan`.
+
+    One instrumented run of the plan (cached per (plan, S) on the store)
+    measures, per join step, the max per-region probe load — which sizes
+    the per-destination a2a probe buckets — and the max range-entry count
+    any probe covers — which sizes the a2a answer return leg (min'd with
+    the configured probe/row caps: never looser than the budget).
+    ``out_cap`` stays the drop-free fallback when nothing was measurable
+    (a single-step scan never probes) or when the tuning run overflowed:
+    the sharded run keeps out_cap rows PER SHARD, so a truncated
+    single-store measurement would under-size the buckets. With
+    ``caps=None`` the drop-free bound is read off the plan's own step
+    caps (a pre-compiled plan arriving via execute_sharded carries its
+    budget in its steps)."""
+    ck = ("a2a_embed", plan, num_shards)
+    hit = store.plan_cache.get(ck)
+    if hit is not None:
+        return hit
+    if caps is None:
+        # the structural drop-free bound of THIS plan: a shard never
+        # routes more probes per step than that step has input bindings
+        out_caps = [st.caps.out_cap for st in plan.steps[1:]
+                    if st.kind in ("mapsin", "multiway")]
+        bound = max(out_caps) if out_caps else plan.steps[0].caps.out_cap
+    else:
+        bound = caps.out_cap
+    from repro_torch.core import bgp  # bgp imports this module at top level
+    stats: list = []
+    probe = dataclasses.replace(plan, route_shards=num_shards)
+    bnd = bgp.execute_local(store, probe, "mapsin", bgp.ExecConfig(),
+                            stats=stats)
+    loads = [st["deliveries_max_region"] for st in stats
+             if st["kind"] not in ("scan", "reduce_side")
+             and "deliveries_max_region" in st]
+    overflowed = int(bnd.overflow) > 0
+    if not loads or overflowed:
+        bucket = bound
+    else:
+        bucket = min(max(max(loads), 8), bound)
+    join_stats = [st for st in stats if st["kind"] != "scan"]
+    steps = [plan.steps[0]]
+    for st, stat in zip(plan.steps[1:], join_stats):
+        scaps = dataclasses.replace(st.caps, a2a_bucket_cap=bucket)
+        if not overflowed and st.kind in ("mapsin", "multiway"):
+            measured = quantize_cap(max(stat.get("probe_len_max", 0), 1))
+            if st.kind == "multiway":
+                scaps = dataclasses.replace(
+                    scaps, row_cap=min(measured, st.caps.row_cap))
+            else:
+                scaps = dataclasses.replace(
+                    scaps, probe_cap=min(measured, st.caps.probe_cap))
+        steps.append(dataclasses.replace(st, caps=scaps))
+    out = dataclasses.replace(plan, steps=tuple(steps))
+    store.plan_cache[ck] = out
+    return out
 
 
 # ---------------------------------------------------------------------------

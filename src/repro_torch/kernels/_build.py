@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -28,6 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}      # name -> nvcc's output (ptxas -v report)
 build_seconds: float | None = None  # wall time of the last build_all()
+_lock = threading.Lock()            # the shards of a LocalMesh launch from
+                                    # threads of their own
 
 
 def _nvcc() -> str:
@@ -80,5 +83,7 @@ def build_all() -> dict[str, ctypes.CDLL]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel source, building all on first use."""
     if name not in _libs:
-        build_all()
+        with _lock:
+            if name not in _libs:
+                build_all()
     return _libs[name]

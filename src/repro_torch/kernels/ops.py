@@ -19,9 +19,13 @@ counts the folded calls). The plain route vmaps natively.
 launches its kernel and nowhere else, so a run can show that it went
 through the kernels. ``flash_attention_variants`` splits flash_attention's
 launches, counted in the same place, by the kernel that ran
-(``kernels/flash_attention.py variant``).
+(``kernels/flash_attention.py variant``). The counters are shared by the
+threads of a ``LocalMesh`` (``core/collectives.py``), one a shard, so
+every count goes through one lock.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -36,6 +40,12 @@ launches = {"searchsorted": 0, "probe_gather": 0, "flash_attention": 0}
 flash_attention_variants = {"wgmma": 0, "simt": 0}
 # calls of a vmap rule that folded a batch into one call of the op
 vmap_folds = {"searchsorted": 0, "probe_gather": 0}
+_count_lock = threading.Lock()
+
+
+def _count(counts: dict, name: str, n: int = 1) -> None:
+    with _count_lock:
+        counts[name] += n
 
 
 def reset_launches() -> None:
@@ -85,7 +95,7 @@ def _searchsorted_op(keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
 def _searchsorted_launch(keys: torch.Tensor,
                          queries: torch.Tensor) -> torch.Tensor:
     out = _ss.searchsorted_cuda(keys, queries)
-    launches["searchsorted"] += int(queries.numel() > 0)
+    _count(launches, "searchsorted", int(queries.numel() > 0))
     return out
 
 
@@ -98,7 +108,7 @@ def _searchsorted_vmap(info, in_dims, keys, queries):
     _shared_keys("searchsorted", in_dims)
     n = info.batch_size
     flat = _fold(queries, in_dims[1], n)
-    vmap_folds["searchsorted"] += 1
+    _count(vmap_folds, "searchsorted")
     return _searchsorted_op(keys, flat).view(
         n, *_slot_shape(queries, in_dims[1])), 0
 
@@ -132,7 +142,7 @@ def _probe_gather_op(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
 def _probe_gather_launch(keys, lo, hi, flt, cap, fmask, eq_mask):
     out = _pg.probe_gather_cuda(keys, lo, hi, flt, cap,
                                 *_pg.decode_masks(fmask, eq_mask))
-    launches["probe_gather"] += int(lo.numel() > 0)
+    _count(launches, "probe_gather", int(lo.numel() > 0))
     return out
 
 
@@ -148,7 +158,7 @@ def _probe_gather_vmap(info, in_dims, keys, lo, hi, flt, cap, fmask, eq_mask):
     n = info.batch_size
     b = _slot_shape(lo, in_dims[1])[0]
     folded = [_fold(x, d, n) for x, d in zip((lo, hi, flt), in_dims[1:4])]
-    vmap_folds["probe_gather"] += 1
+    _count(vmap_folds, "probe_gather")
     k, valid, missed = _probe_gather_op(keys, *folded, cap, fmask, eq_mask)
     return ((k.view(n, b, cap), valid.view(n, b, cap), missed.view(n, b)),
             (0, 0, 0))
@@ -185,6 +195,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _fa.flash_attention_plain(q, k, v, causal, scale)
     out = _fa.flash_attention_cuda(q, k, v, causal, scale)
     if q.numel() > 0:
-        launches["flash_attention"] += 1
-        flash_attention_variants[_fa.variant(q)] += 1
+        _count(launches, "flash_attention")
+        _count(flash_attention_variants, _fa.variant(q))
     return out

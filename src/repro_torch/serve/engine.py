@@ -27,6 +27,23 @@ tenant asks "students of <their> department"). The engine exploits that:
   batched cascades live in an ``LRUCache`` so a many-template tenant mix
   cannot grow host memory forever.
 
+* **Sharded serving** (DESIGN.md §4/§5): with a ``mesh``
+  (``core/collectives.py``) the engine runs the template cascade on
+  every region shard of the store. Each shard seeds the batch from its
+  own key slice (vmapped seed scan — local), then every cascade step
+  flattens the per-slot probe records of ALL queries in the batch,
+  routes them via the stored region splits, and ships them with ONE
+  ``all_to_all`` pair (``dist_probe_batched``) before a vmapped local
+  merge scatters matches back to per-query slots — the batch shares the
+  collective. With ``routing="a2a"`` and ``caps.a2a_bucket_cap == 0``
+  every dispatch's caps come from the PLAN: ``compile_plan`` embeds the
+  measured per-step a2a capacities (``planner.embed_a2a_caps``, cached
+  per distinct query) and the engine only aggregates them per dispatch
+  — per-destination probe buckets are the SUM of the members' embedded
+  bucket caps (the exact drop-free bound) and the answer return legs the
+  MAX of their embedded per-step answer caps, both quantized
+  (``quantize_cap``).
+
 * **Robustness layer** (DESIGN.md §7): a completed dispatch that
   reports nonzero overflow is not delivered truncated — the engine
   replans the query at geometrically escalated Caps (``escalate_caps``,
@@ -35,16 +52,17 @@ tenant asks "students of <their> department"). The engine exploits that:
   via ``execute_local``. Per-query deadlines shed expired queries with
   structured ``QueryTimeout`` results; a full queue sheds by priority
   (``QueryShed`` + ``retry_after``) before raising ``EngineBusy`` (which
-  carries the compiled plan and the hint).
+  carries the compiled plan and the hint); a seeded ``FaultPlan``
+  injects drop/corrupt/delay faults into the a2a answer legs, which
+  answer-leg checksums detect and the dispatch loop retries — wrong rows
+  are structurally impossible (mismatched blocks are zeroed).
 
 The engine runs on the store's device: the card for a CUDA store, the
-CPU (with the kernels' plain versions) for a CPU store. The sharded
-(mesh) engine of the JAX package, with its a2a capacity aggregation and
-its fault injection, is not ported yet: a ``mesh``, a ``fault_plan`` or
-``check_answers=True`` raises.
+CPU (with the kernels' plain versions) for a CPU store.
 
 Results are per-slot Bindings — bit-identical row sets to
-``execute_local`` on the same (patterns, cfg, caps). MAPSIN operators
+``execute_local`` on the same (patterns, cfg, caps) (sharded results keep
+``out_cap`` rows PER SHARD, like ``execute_sharded``). MAPSIN operators
 only: reduce-side re-scans relations with an empty domain, which a
 seeded-constant template cannot express — the engine compiles with
 ``planner.ENGINE_OPERATORS``, so under a truncating cap budget (probe
@@ -66,21 +84,25 @@ import numpy as np
 import torch
 
 from repro_torch.core import mapsin as ms
-from repro_torch.core.bgp import ExecConfig, execute_local
+from repro_torch.core.bgp import (ExecConfig, a2a_step_payload_bytes,
+                                  apply_dist_step, execute_local)
+from repro_torch.core.distributed import a2a_leg_bytes
 from repro_torch.core.mapsin import Bindings, apply_residual, compact
 from repro_torch.core.plan import make_plan, probe_ranges, residual_values
 from repro_torch.core.planner import (ENGINE_OPERATORS, Caps, PhysicalPlan,
-                                      PlanStep, compile_plan, escalate_caps)
+                                      PlanStep, compile_plan, escalate_caps,
+                                      quantize_cap)
 from repro_torch.core.rdf import Pattern, is_var, unpack3
 from repro_torch.core.triple_store import LRUCache, TripleStore
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.trace import Span, Tracer, spans_from_stats
+from repro_torch.serve.faults import FaultPlan
 from repro_torch.serve.sparql import ParsedQuery, parse_bgp
 
 # engine lifecycle events (DESIGN.md §8): admission at DEBUG, shed /
-# escalation / fallback / timeout at INFO. No handler is installed here —
-# with default logging config the effective level is WARNING, so a
-# healthy engine is silent.
+# escalation / fallback / timeout at INFO, fault quarantine at WARNING.
+# No handler is installed here — with default logging config the
+# effective level is WARNING, so a healthy engine is silent.
 log = logging.getLogger("repro_torch.serve")
 
 
@@ -310,14 +332,15 @@ class ServeEngine:
     template bucket; ``drain``/``execute`` run to completion. Results are
     per-request ``QueryResult``s whose row sets equal ``execute_local``.
 
+    With ``mesh`` (``core/collectives.py``; the store sharded to the
+    mesh size on ``axis``) every dispatch is ONE run of the template
+    cascade on every shard against the region-sharded store; per-batch,
+    not per-query, collective overhead (module docstring).
     ``min_batch``/``max_wait_s``: ``step`` defers while the fullest
     bucket is below ``min_batch`` UNLESS the oldest queued request has
     waited ``max_wait_s`` (then its bucket dispatches as-is) —
     latency-bounded batch aggregation; the defaults (1, 0.0) keep the
-    greedy always-dispatch behavior. ``mesh``, ``axis``, ``fault_plan``,
-    ``check_answers`` and ``fault_retries`` belong to the sharded engine,
-    which is not ported yet: a mesh, a fault plan or checked answers
-    raise ``ValueError``.
+    greedy always-dispatch behavior.
     """
 
     def __init__(self, store: TripleStore, dictionary=None,
@@ -329,25 +352,44 @@ class ServeEngine:
                  min_batch: int = 1, max_wait_s: float = 0.0,
                  max_escalations: int = 3,
                  dispatch_timeout_s: float | None = None,
-                 fault_plan=None, check_answers: bool | None = None,
+                 fault_plan: FaultPlan | None = None,
+                 check_answers: bool | None = None,
                  fault_retries: int = 2,
                  tracer: Tracer | None = None,
                  metrics=None, name: str = "engine"):
         if mode != "mapsin":
             raise ValueError("ServeEngine serves the MAPSIN path only "
                              "(reduce-side re-scans need an empty domain)")
-        if mesh is not None or fault_plan is not None or check_answers:
-            raise ValueError("the sharded serving path (mesh, a2a fault "
-                             "injection, answer-leg checksums) is not "
-                             "ported yet")
+        if mesh is not None and store.num_shards != int(mesh.shape[axis]):
+            raise ValueError(
+                f"store has {store.num_shards} shards but mesh axis "
+                f"{axis!r} has {int(mesh.shape[axis])} devices")
+        if mesh is not None and mesh.device != store.device:
+            raise ValueError(f"the mesh runs on {mesh.device}, the store "
+                             f"is on {store.device}")
         if min_batch > max_batch:
             raise ValueError("min_batch cannot exceed max_batch")
+        if fault_plan is not None and (mesh is None
+                                       or cfg.routing != "a2a"):
+            raise ValueError("fault injection hooks the a2a answer leg — "
+                             "it needs a mesh and routing='a2a'")
         self.store, self.dictionary = store, dictionary
         self.cfg, self.caps, self.mode = cfg, caps, mode
+        self.mesh, self.axis = mesh, axis
         self.max_batch, self.max_queue = max_batch, max_queue
         self.min_batch, self.max_wait_s = min_batch, max_wait_s
         self.max_escalations = max_escalations
         self.dispatch_timeout_s = dispatch_timeout_s
+        self.fault_plan = fault_plan
+        # answer-leg checksums ride every dispatch when faults are being
+        # injected (or on explicit opt-in); the check is what turns an
+        # injected fault into a detected-and-retried one
+        self.check_answers = (check_answers if check_answers is not None
+                              else fault_plan is not None)
+        if self.check_answers and (mesh is None or cfg.routing != "a2a"):
+            raise ValueError("answer-leg checksums need a mesh and "
+                             "routing='a2a'")
+        self.fault_retries = fault_retries
         # observability (DESIGN.md §8): `tracer` records query-lifecycle
         # spans (None = off — every hook is behind one `is not None`
         # test, so the default path does no extra work); `metrics` is the
@@ -378,10 +420,16 @@ class ServeEngine:
                                         # request's bucket was passed over
         self.dispatches = 0             # batched cascade invocations
         self.dispatched_queries = 0     # requests served by them
+        self.a2a_payload_bytes = 0      # static per-shard a2a collective
+                                        # payload shipped by dispatches
         self._service_ewma = 0.0        # measured seconds per dispatch
+        self.fault_epoch = 0            # monotone physical-dispatch counter
+                                        # (faults key on it; retries advance)
         self.escalations = 0            # overflow-escalation re-dispatches
         self.fallbacks = 0              # exact reduce_side fallback runs
         self.timeouts = 0               # deadline-shed queries
+        self.corrupt_detected = 0       # quarantined answer blocks seen
+        self.fault_redispatches = 0     # dispatches retried on detection
         self.shed_by_tenant: dict = {}  # tenant -> evicted-request count
 
     # --- admission -------------------------------------------------------
@@ -630,48 +678,118 @@ class ServeEngine:
     def _compile(self, patterns, caps: Caps | None = None) -> PhysicalPlan:
         """Compile the query with the engine's operator set at `caps`
         (default: the engine's base budget; escalation passes the
-        escalated one)."""
+        escalated one). With a mesh, a2a routing, and an unpinned bucket
+        cap, compile_plan embeds the measured a2a capacities into the
+        plan's steps (one instrumented run per DISTINCT query, cached on
+        the store — the cost execute_sharded pays); the engine reads the
+        caps off the plan."""
         caps = self.caps if caps is None else caps
+        num_shards = (self.store.num_shards
+                      if (self.mesh is not None
+                          and self.cfg.routing == "a2a"
+                          and caps.a2a_bucket_cap == 0) else 0)
         return compile_plan(self.store, patterns, caps, mode=self.mode,
                             reorder=self.cfg.reorder,
-                            operators=ENGINE_OPERATORS)
-
-    # Per-dispatch a2a capacities belong to the sharded engine; on one
-    # device there is no a2a leg, so these give what the JAX package's
-    # engine gives without a mesh.
+                            operators=ENGINE_OPERATORS,
+                            routing=self.cfg.routing, num_shards=num_shards)
 
     def _plan_caps(self, plan: PhysicalPlan,
                    caps: Caps | None = None) -> tuple:
-        """Per-request a2a capacity values read off the plan: (bucket
-        cap, per-join-step answer caps); (0, None) without a mesh."""
-        return 0, None
+        """Per-request capacity values read OFF the plan: (bucket cap,
+        per-join-step answer caps). The bucket caps SUM across batch
+        members (_bucket_cap_for), the answer caps MAX across them
+        (_step_caps_for — the a2a return leg is per probe, so the widest
+        member's embedded cap bounds everyone). ((0, None) when the plan
+        carries no embedded a2a capacities.)"""
+        caps = self.caps if caps is None else caps
+        if (self.mesh is None or self.cfg.routing != "a2a"
+                or caps.a2a_bucket_cap > 0):
+            return 0, None
+        tuned = max((st.caps.a2a_bucket_cap for st in plan.steps[1:]),
+                    default=0)
+        step_caps = tuple(st.caps.row_cap if st.kind == "multiway"
+                          else st.caps.probe_cap for st in plan.steps[1:])
+        return tuned, step_caps
 
     def _bucket_cap_for(self, reqs: list, batch: int) -> int:
-        """Per-destination a2a probe-bucket capacity of one dispatch; 0
-        without a mesh."""
-        return 0
+        """Per-destination a2a probe-bucket capacity for ONE dispatch: the
+        SUM of the members' tuned caps (+ padding slots at the replicated
+        request-0 cap), quantized. The sum is the exact drop-free bound
+        for the batch — the per-(sender, region) load is at most
+        sum_q L_q. Clamped at batch x out_cap, the structural bound (a
+        query never routes more probes than out_cap bindings per shard).
+        0 without an a2a mesh."""
+        ecaps = (reqs[0].ecaps if reqs and reqs[0].ecaps is not None
+                 else self.caps)
+        if self.mesh is None or self.cfg.routing != "a2a":
+            return 0
+        if ecaps.a2a_bucket_cap > 0:
+            per_query = min(ecaps.a2a_bucket_cap, ecaps.out_cap)
+            return batch * per_query
+        # unembedded slots (possible only when a request was admitted under
+        # a different config than it dispatches with) fall back to the
+        # drop-free out_cap bound
+        tuned = [r.tuned if r.tuned > 0 else ecaps.out_cap for r in reqs]
+        total = sum(tuned) + (batch - len(reqs)) * (tuned[0] if tuned
+                                                    else ecaps.out_cap)
+        return min(quantize_cap(total), batch * ecaps.out_cap)
 
     def _step_caps_for(self, reqs: list, template: Template) -> tuple:
-        """Per-join-step answer caps of one dispatch: without a mesh, the
-        template's base probe/row caps."""
-        return tuple(st.caps.row_cap if st.kind == "multiway"
-                     else st.caps.probe_cap for st in template.steps[1:])
+        """Per-join-step a2a answer caps for one dispatch: the MAX of the
+        members' plan-embedded caps per step (quantized; a probe's
+        answers are per probe, not per batch), min'd with the base
+        probe/row caps — never looser than the budget, and falling back
+        to it for unembedded members (and without an a2a mesh)."""
+        ecaps = (reqs[0].ecaps if reqs and reqs[0].ecaps is not None
+                 else self.caps)
+        base_caps = tuple(st.caps.row_cap if st.kind == "multiway"
+                          else st.caps.probe_cap
+                          for st in template.steps[1:])
+        if (self.mesh is None or self.cfg.routing != "a2a"
+                or ecaps.a2a_bucket_cap > 0):
+            return base_caps
+        caps = list(base_caps)
+        for i, dflt in enumerate(base_caps):
+            embedded = [r.step_caps[i] for r in reqs
+                        if r.step_caps is not None and i < len(r.step_caps)]
+            if embedded and len(embedded) == len(reqs):
+                caps[i] = min(quantize_cap(max(embedded)), dflt)
+        return tuple(caps)
+
+    def _payload_bytes(self, bucket_cap: int, step_caps: tuple) -> int:
+        """Static per-shard a2a collective payload for one dispatch:
+        records out + answers back, the local diagonal block excluded — it
+        never crosses the network. 0 without an a2a mesh."""
+        if self.mesh is None or self.cfg.routing != "a2a":
+            return 0
+        s = self.store.num_shards
+        return sum(a2a_step_payload_bytes(bucket_cap, cap, s)
+                   for cap in step_caps)
 
     def _compiled_batch(self, tid: int, template: Template, batch: int,
-                        bucket_cap: int, step_caps: tuple):
-        # full ExecConfig + store shard layout (+ the resolved
-        # bucket/answer caps) key the cache: toggling impl/caps or
-        # re-pointing at a rebuilt or mutated store can never reuse a
-        # stale batched cascade
-        key = ("batched", tid, batch, self.cfg, self.caps,
-               self.store.layout_key, bucket_cap, step_caps)
+                        bucket_cap: int, step_caps: tuple,
+                        fsel=None, with_check: bool = False):
+        # full ExecConfig + mesh identity + store shard layout (+ the
+        # resolved bucket/answer caps and fault selection, constants of
+        # the cascade) key the cache: toggling routing/caps, re-pointing
+        # at a resharded or mutated store, re-sized buckets, or a
+        # different injected fault pattern can never reuse a stale
+        # cascade. Clean epochs all carry fsel=None — they share ONE
+        # checked cascade.
+        mesh_id = (None if self.mesh is None
+                   else self.mesh.fingerprint(self.axis))
+        key = ("batched", tid, batch, self.cfg, self.caps, mesh_id,
+               self.store.layout_key, bucket_cap, step_caps, fsel,
+               with_check)
         hit = self._compiled.get(key)
         m = self.metrics_registry
         if hit is None:
             m.counter("serve_compile_cache_misses_total").inc()
             tr = self.tracer
             tc0 = tr.now() if tr is not None else 0.0
-            hit = self._build(template)
+            hit = (self._build_sharded(template, batch, bucket_cap,
+                                       step_caps, fsel, with_check)
+                   if self.mesh is not None else self._build(template))
             if tr is not None:
                 tr.record("compile", tc0, tr.now(), track="engine",
                           parent=self._step_span, template=tid, batch=batch)
@@ -719,30 +837,117 @@ class ServeEngine:
         batched = torch.func.vmap(one, in_dims=(None, None, 0, 0, 0, 0))
         return batched, scratch_vars
 
+    def _build_sharded(self, template: Template, batch: int,
+                       bucket_cap: int, step_caps: tuple,
+                       fsel=None, with_check: bool = False):
+        """One mesh run serves the whole batch against the region-sharded
+        store. Inside the per-shard body the seed scan is vmapped over the
+        batch against the LOCAL key slice (no collective — each shard
+        seeds what it owns, exactly like execute_sharded's scan), then
+        every cascade step routes the flattened per-slot probe records of
+        ALL queries through ONE dist_probe collective round
+        (apply_dist_step(batched=True)) and vmaps the merge back to
+        per-query slots. Returns (consts (batch, n_consts) on the store's
+        device) -> per-shard results [(table (batch, out_cap, nv), valid,
+        overflow (batch,), step_ovf (n_steps, batch) cumulative, bad ())].
+
+        `fsel`/`with_check` (DESIGN.md §7): fsel is the per-join-step
+        static fault selection of ONE dispatch epoch (serve/faults.py);
+        with_check adds the answer-leg checksum verify, whose per-shard
+        quarantined-block count is the `bad` output the dispatch loop
+        retries on."""
+        cfg, mesh, store = self.cfg, self.mesh, self.store
+        steps, const_vars = template.steps, template.const_vars
+        # per-dispatch effective steps: the batch-aggregated a2a bucket cap
+        # and the per-join-step answer caps, embedded into each step's caps
+        # (apply_dist_step reads them there)
+        eff_steps = [steps[0]] + [
+            dataclasses.replace(st, caps=dataclasses.replace(
+                st.caps, probe_cap=step_caps[i], row_cap=step_caps[i],
+                a2a_bucket_cap=bucket_cap))
+            for i, st in enumerate(steps[1:])]
+        first = steps[0].patterns[0]
+        first_plan = make_plan(first, const_vars)
+        scratch_vars = const_vars + first_plan.out_var_names
+        splits_spo, splits_ops = store.splits_spo, store.splits_ops
+        keys_spo, keys_ops = store.keys_spo, store.keys_ops
+        out_cap = steps[0].caps.out_cap
+
+        def seed_one(keys, c, t, v, o):
+            b = _seed_scan(first, const_vars, keys, c, out_cap, cfg.impl,
+                           Bindings(scratch_vars, t, v, o))
+            return b.table, b.valid, b.overflow
+        seed = torch.func.vmap(seed_one, in_dims=(None, 0, 0, 0, 0))
+
+        def body(comm, consts):
+            me = comm.index
+            kspo, kops = keys_spo[me], keys_ops[me]
+            keys_of = lambda pat, dom: (
+                kspo if make_plan(pat, dom).index == 0 else kops)
+            splits_of = lambda pat, dom: (
+                splits_spo if make_plan(pat, dom).index == 0 else splits_ops)
+            scr = self._scratch(scratch_vars, batch, out_cap)
+            bnd = Bindings(scratch_vars, *seed(keys_of(first, const_vars),
+                                               consts, scr.table, scr.valid,
+                                               scr.overflow))
+            ovfs = [bnd.overflow]
+            bad = torch.zeros((), dtype=torch.int32, device=consts.device)
+            for i, st in enumerate(eff_steps[1:]):
+                keys = keys_of(st.patterns[0], bnd.vars)
+                out = apply_dist_step(
+                    bnd, st, keys, splits_of(st.patterns[0], bnd.vars),
+                    cfg, comm, batched=True,
+                    fault=fsel[i] if fsel is not None else None,
+                    with_check=with_check)
+                if with_check:
+                    bnd, bad_i = out
+                    bad = bad + bad_i
+                else:
+                    bnd = out
+                ovfs.append(bnd.overflow)
+            step_ovf = torch.stack(ovfs)         # (n_steps, batch) cumulative
+            return bnd.table, bnd.valid, bnd.overflow, step_ovf, bad
+
+        def run(consts):
+            return mesh.run(lambda comm: body(comm, consts))
+        return run, scratch_vars
+
     def _dispatch(self, tid: int, template: Template, batch: int,
-                  consts: np.ndarray, bucket_cap: int, step_caps: tuple):
+                  consts: np.ndarray, bucket_cap: int, step_caps: tuple,
+                  fsel=None, with_check: bool = False):
         """Run one batched cascade; returns numpy copies with a leading
-        shard axis of 1, as the JAX package's engine does: tables (1,
-        batch, out_cap, nv), valids (1, batch, out_cap), overflow (1,
-        batch), step_ovf (1, batch, n_steps) cumulative. The results come
-        to the host once per dispatch, not once per request."""
-        fn, scratch_vars = self._compiled_batch(tid, template, batch,
-                                                bucket_cap, step_caps)
+        shard axis, as the JAX package's engine does: tables (S, batch,
+        out_cap, nv), valids (S, batch, out_cap), overflow (S, batch),
+        step_ovf (S, batch, n_steps) cumulative, and the int quarantined
+        block count `bad` — S == 1 and bad == 0 on the local (mesh-less)
+        path. The results come to the host once per dispatch, not once
+        per request."""
+        fn, scratch_vars = self._compiled_batch(
+            tid, template, batch, bucket_cap, step_caps, fsel, with_check)
         store = self.store
-        out_cap = template.steps[0].caps.out_cap
-        scratch = self._scratch(scratch_vars, batch, out_cap)
+        dev_consts = torch.as_tensor(consts, device=store.device)
         # optional profiler bracket: lines the engine dispatch up with the
         # kernels on torch.profiler's timeline when the tracer was built
         # with torch_profiler=True; a nullcontext otherwise
         bracket = (self.tracer.device_bracket(
                        f"serve_dispatch/t{tid}b{batch}", store.device)
                    if self.tracer is not None else contextlib.nullcontext())
+        if self.mesh is None:
+            out_cap = template.steps[0].caps.out_cap
+            scratch = self._scratch(scratch_vars, batch, out_cap)
+            with bracket:
+                out = fn(store.flat_keys(0), store.flat_keys(1), dev_consts,
+                         scratch.table, scratch.valid, scratch.overflow)
+                table, valid, overflow, step_ovf = (t.cpu().numpy()
+                                                    for t in out)
+            return table[None], valid[None], overflow[None], step_ovf[None], 0
         with bracket:
-            out = fn(store.flat_keys(0), store.flat_keys(1),
-                     torch.as_tensor(consts, device=store.device),
-                     scratch.table, scratch.valid, scratch.overflow)
-            table, valid, overflow, step_ovf = (t.cpu().numpy() for t in out)
-        return table[None], valid[None], overflow[None], step_ovf[None]
+            shards = fn(dev_consts)
+            t, v, o, so, bad = (torch.stack(x).cpu().numpy()
+                                for x in zip(*shards))
+        self.a2a_payload_bytes += self._payload_bytes(bucket_cap, step_caps)
+        # (S, n_steps, batch) -> (S, batch, n_steps)
+        return t, v, o, np.transpose(so, (0, 2, 1)), int(bad.sum())
 
     def precompile(self, query, batches: Sequence[int] | None = None):
         """Build (and warm) the query's template cascade for the given
@@ -768,6 +973,7 @@ class ServeEngine:
             while b <= self.max_batch:
                 batches.append(b)
                 b <<= 1
+        payload0 = self.a2a_payload_bytes
         for b in batches:
             # warm the uniform-batch cap sizes for this query's tuned caps
             fake = [_Request(-1, tid, template, None, (), None, tuned=tuned,
@@ -776,6 +982,7 @@ class ServeEngine:
                            np.zeros((b, template.n_consts), np.int32),
                            self._bucket_cap_for(fake, b),
                            self._step_caps_for(fake, template))
+        self.a2a_payload_bytes = payload0      # warm-up ships no live traffic
 
     def _scratch(self, scratch_vars: tuple[str, ...], batch: int,
                  out_cap: int | None = None) -> Bindings:
@@ -889,8 +1096,19 @@ class ServeEngine:
             consts[i] = reqs[0].consts               # request 0, discarded
         bucket_cap = self._bucket_cap_for(reqs, batch)
         step_caps = self._step_caps_for(reqs, template)
+        with_check = self.check_answers and self.mesh is not None
+        n_joins = len(template.steps) - 1
         tr = self.tracer
         m = self.metrics_registry
+        # per-leg a2a payload of one physical dispatch (distributed.py's
+        # wire-format accounting, split probe-out vs answer-back)
+        probe_b = answer_b = 0
+        if self.mesh is not None and self.cfg.routing == "a2a":
+            for cap in step_caps:
+                pb, ab = a2a_leg_bytes(bucket_cap, cap,
+                                       self.store.num_shards)
+                probe_b += pb
+                answer_b += ab
         tq = 0.0
         if tr is not None:
             # bulk-materialize the queued-wait spans: ONE clock read and a
@@ -909,16 +1127,47 @@ class ServeEngine:
                                 r.span.span_id, r.rid))
                     r.tq0 = -1.0
         t0 = time.monotonic()
-        dsp = (tr.begin("dispatch", track="engine", parent=self._step_span,
-                        template=reqs[0].tid, batch=batch, n=n,
-                        bucket_cap=bucket_cap)
-               if tr is not None else None)
-        # (S, batch, out_cap, nv) tables with S == 1
-        tables, valids, overflow, step_ovf = self._dispatch(
-            reqs[0].tid, template, batch, consts, bucket_cap, step_caps)
-        if dsp is not None:
-            tr.end(dsp)
-        elapsed = time.monotonic() - t0
+        delay = 0.0
+        bad = 0
+        # fault-detection retry loop: each physical dispatch attempt burns
+        # one fault epoch, so a retry naturally escapes a one-shot fault;
+        # clean epochs share one cascade (fsel normalized to None)
+        for attempt in range(self.fault_retries + 1):
+            fsel = None
+            epoch = self.fault_epoch
+            if self.fault_plan is not None:
+                fsel = self.fault_plan.selection(epoch, n_joins)
+                delay += self.fault_plan.delay_s_at(epoch)
+                if not any(d or c for d, c in fsel):
+                    fsel = None
+            self.fault_epoch += 1
+            dsp = (tr.begin("dispatch", track="engine",
+                            parent=self._step_span, template=reqs[0].tid,
+                            batch=batch, n=n, epoch=epoch, retry=attempt,
+                            faults=fsel is not None, bucket_cap=bucket_cap,
+                            probe_bytes=probe_b, answer_bytes=answer_b)
+                   if tr is not None else None)
+            # (S, batch, out_cap, nv) per-shard tables; S == 1 un-meshed
+            tables, valids, overflow, step_ovf, bad = self._dispatch(
+                reqs[0].tid, template, batch, consts, bucket_cap,
+                step_caps, fsel, with_check)
+            if dsp is not None:
+                tr.end(dsp, bad=bad)
+            if probe_b:
+                m.counter("serve_a2a_probe_bytes_total").inc(probe_b)
+                m.counter("serve_a2a_answer_bytes_total").inc(answer_b)
+            if bad == 0:
+                break
+            self.corrupt_detected += bad
+            m.counter("serve_faults_detected_total").inc(bad)
+            log.warning("a2a answer-leg checksum mismatch: %d block(s) "
+                        "quarantined (epoch=%d)%s", bad, epoch,
+                        "; retrying" if attempt < self.fault_retries
+                        else "; retries exhausted")
+            if attempt < self.fault_retries:
+                self.fault_redispatches += 1
+                m.counter("serve_fault_redispatches_total").inc()
+        elapsed = (time.monotonic() - t0) + delay
         a = 0.3                                       # service-time EWMA
         self._service_ewma = (elapsed if self._service_ewma == 0.0
                               else a * elapsed + (1 - a) * self._service_ewma)
@@ -936,6 +1185,8 @@ class ServeEngine:
         self._m_dispatches.inc()
         self._m_disp_queries.inc(n)
         self._m_batch_hist.observe(n)
+        if bad > 0:
+            m.counter("serve_fault_unrecovered_total").inc()
         # delivery: rung + root spans materialize HERE, one shared `td`
         # clock read and one shared attrs dict per (attempt, outcome) —
         # nothing span-shaped is allocated per query before this point
@@ -949,6 +1200,8 @@ class ServeEngine:
             per_step = tuple(int(x) for x in np.diff(cum, prepend=0))
             stats = {"kinds": kinds, "overflow_per_step": per_step,
                      "attempt": r.attempt}
+            if bad > 0:
+                stats["fault_unrecovered"] = True
             deadline_ok = (r.deadline is None
                            or (now is None and r.arrival is not None))
             if watchdog or (not deadline_ok and end_clock > r.deadline):
@@ -968,7 +1221,7 @@ class ServeEngine:
             if ovf > 0:
                 m.counter("serve_overflow_rows_total").inc(ovf)
             if (ovf > 0 and not r.inexact_ok and self.max_escalations > 0
-                    and r.patterns is not None):
+                    and r.patterns is not None and bad == 0):
                 if r.attempt + 1 >= self.max_escalations:
                     if tr is not None and r.span is not None:
                         tr.spans.append(Span(

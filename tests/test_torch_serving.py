@@ -8,7 +8,7 @@ results (type, rows, overflow, per-step overflow, stats), the dispatch,
 escalation, fallback, timeout and shed counters, the compile-cache
 counters and the span tree must be identical. The cases mirror the
 single-device ones of tests/test_serving.py and tests/test_robustness.py
-(not the mesh and FaultPlan ones: the sharded engine is not ported).
+(the mesh and FaultPlan ones are in tests/test_torch_serving_sharded.py).
 Timeouts run on a virtual clock (``arrival=`` / ``step(now=)``)."""
 import dataclasses
 import itertools
@@ -31,7 +31,8 @@ from repro_torch.core.planner import ENGINE_OPERATORS
 from repro_torch.data import lubm_like, sp2b_like
 from repro_torch.data.rdf_gen import LUBM_SPARQL
 from repro_torch.kernels import ops
-from repro_torch.serve import (EngineBusy, QueryShed, QueryTimeout,
+from repro_torch.core.collectives import LocalMesh
+from repro_torch.serve import (EngineBusy, FaultPlan, QueryShed, QueryTimeout,
                                ServeEngine, plan_signature)
 
 CAPS = dict(scan_cap=4096, out_cap=4096, probe_cap=16, row_cap=64)
@@ -334,12 +335,15 @@ def test_precompile_warms_every_power_of_two(graph):
 def test_engine_rejects_what_it_cannot_serve(graph):
     with pytest.raises(ValueError):
         ServeEngine(graph["ts"], caps=Caps(**CAPS), mode="reduce")
-    with pytest.raises(ValueError, match="not ported"):
-        ServeEngine(graph["ts"], mesh=object())
-    with pytest.raises(ValueError, match="not ported"):
-        ServeEngine(graph["ts"], fault_plan=object())
-    with pytest.raises(ValueError, match="not ported"):
+    # the sharded engine's refusals, as the reference's: a fault plan or
+    # checked answers need an a2a mesh, a mesh the store's shard count
+    # (tests/test_torch_serving_sharded.py holds them side by side)
+    with pytest.raises(ValueError, match="a2a"):
+        ServeEngine(graph["ts"], fault_plan=FaultPlan())
+    with pytest.raises(ValueError, match="a2a"):
         ServeEngine(graph["ts"], check_answers=True)
+    with pytest.raises(ValueError, match="shards"):
+        ServeEngine(graph["ts"], mesh=LocalMesh(2, device="cpu"))
     with pytest.raises(ValueError):
         ServeEngine(graph["ts"], max_batch=4, min_batch=8)
     eng = ServeEngine(graph["ts"], caps=Caps(**CAPS))     # no dictionary
@@ -540,9 +544,9 @@ def test_escalated_query_span_tree_matches_reference(graph, tmp_path):
     assert e.tt.open_count == 0 and e.tj.open_count == 0
     assert _span_tree(e.tt) == _span_tree(e.tj)
     for a, b in zip(e.tt.spans, e.tj.spans):
-        # the port's spans carry the reference's attrs, less the sharded
-        # path's (fault epoch, retry, a2a bytes)
-        assert a.attrs.items() <= b.attrs.items(), a.name
+        # the reference's attrs, the fault epoch, retry and a2a bytes of
+        # the dispatch spans included
+        assert a.attrs == b.attrs, a.name
     names = {s.name for s in e.tt.spans}
     assert {"submit", "plan", "query", "queued", "step", "dispatch",
             "compile", "rung0", "rung4"} <= names
