@@ -90,7 +90,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
                layer's own (q, k, v) beside SDPA, with its TFLOP/s, its
                share of the bound and both errors (absolute and per
                row) against the plain version;
-  10. summary — the kernels line, the memory line, the card line, and the
+  10. LM training at full width — yi-6b's width (d 4096, 32/4 heads x
+               128, d_ff 11008, vocab 64000, bf16) cut to 16 layers,
+               batch 2 x 4096 from batch_for_step, remat "names", through
+               runtime.Trainer.run for 6 steps (the first a warm-up, the
+               last profiled): per step ms, tokens/s, loss, grad norm, lr
+               and flash_attention launches (2 a layer: forward and
+               recompute, all wgmma), model FLOPs and their share of the
+               bf16 peak, peak memory, the profiled step's device busy
+               share with the attention backward, GEMMs, cross-entropy and
+               AdamW named; the first step's loss, grad norm and every
+               gradient leaf with attention_impl="kernel" against "torch";
+               the kernel at layer 0's training (q, k, v) beside SDPA and
+               the plain backward's time there, the plain backward against
+               autograd of the plain forward; determinism; a bit-exact
+               crash-resume on one full-width layer (1 x 1024, 6 steps,
+               checkpoint every 4, killed at 5) with checkpoint write and
+               load GB/s; `python -m repro_torch.launch.train --smoke`;
+  11. summary — the kernels line, the memory line, the card line, and the
                result line as the last line.
 It needs a CUDA device and the repository's src/ beside it.
 """
@@ -2377,7 +2394,9 @@ def run_lm_serving(torch, args, failures: list) -> dict:
                 decode_ms=t_decode * 1e3, init_s=t_init)
 
 
-def time_flash_attention(torch, ops, x: dict) -> dict:
+def time_flash_attention(torch, ops, x: dict,
+                         label: str = "yi-6b prefill layer 0",
+                         card: str = "") -> dict:
     """The kernel, its plain version and SDPA on layer 0's (q, k, v)."""
     import torch.nn.functional as F
     q, k, v, causal = x["q"], x["k"], x["v"], x["causal"]
@@ -2417,7 +2436,7 @@ def time_flash_attention(torch, ops, x: dict) -> dict:
                ms=t_k, plain_ms=t_p, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                library_ms=t_l,
-               shape=f"yi-6b prefill layer 0: q {tuple(q.shape)} k/v "
+               shape=f"{label}: q {tuple(q.shape)} k/v "
                      f"{tuple(k.shape)} {dname} causal={causal}; "
                      f"{flops:.4e} flops ({t_ops:.6f} ms at the bf16 "
                      f"tensor peak, {flops / F32_FLOPS * 1e3:.6f} ms at "
@@ -2430,8 +2449,411 @@ def time_flash_attention(torch, ops, x: dict) -> dict:
         f"of the bound (SDPA {flops / t_l / 1e9:.1f} TFLOP/s); max_abs_err "
         f"against the plain version: kernel {err:.3e}, SDPA {sdpa_err:.3e}; "
         f"row_rel_err: kernel {row:.3e}, SDPA {sdpa_row:.3e} (bound "
-        f"{ATTN_ROW_TOL[dname]:.3e})")
+        f"{ATTN_ROW_TOL[dname]:.3e})" + (f"; {card}" if card else ""))
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 10: LM training at full width
+# ---------------------------------------------------------------------------
+
+# yi-6b at full width cut to 16 of its 32 layers: with float32 moments all
+# 32 layers hold 72.7 GB of params, bf16 grads and moments before any
+# activation; 16 layers (3.294 B params) hold 39.5 GB. train_4k's 4096
+# positions, 2 of its 256 rows.
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_ROWS = 16, 4096, 2
+TRAIN_STEPS = 6          # step 0 warms up, 1-4 are timed, 5 is profiled
+RESUME_SEQ, RESUME_STEPS, RESUME_EVERY, RESUME_FAIL = 1024, 6, 4, 5
+# The kernel rounds P to bf16 before P.V (at most 2^-9 of a probability);
+# the plain forward does not. Both take the same plain backward, so the
+# first step's loss and gradients differ only by that rounding carried
+# through the layers in bf16. The loss averages 8192 tokens: it moves by
+# far less than one rounding of P. The grad norm sums every gradient: one
+# bf16 step. A gradient leaf's largest difference is measured against the
+# same difference of a plain model of that one rounding (`rounded_p`, the
+# plain version with P rounded to bf16 before P.V): the kernel may move a
+# leaf at most twice as far from the plain gradients as the model does.
+TRAIN_LOSS_TOL = 2 ** -9      # |loss_kernel - loss_torch| / loss_torch
+TRAIN_GNORM_TOL = 2 ** -8     # |gnorm_kernel - gnorm_torch| / gnorm_torch
+TRAIN_GRAD_RATIO = 2.0        # kernel's leaf difference / the model's
+# the plain backward against autograd of the plain forward: both take
+# float32 products and round each output to bf16 once, so within one bf16
+# step of the output's largest element
+BWD_TOL = 2 ** -7
+BWD_SEQ = 512            # the shorter sequence of that comparison
+
+
+def grad_norm(grads: dict) -> float:
+    return math.sqrt(sum(float(g.float().square().sum()) for g in grads.values()))
+
+
+def train_model_flops(cfg, b: int, s: int) -> tuple[float, float]:
+    """(6 x non-embedding params x tokens, attention): the model FLOPs of
+    one step, forward and backward, no recompute. Non-embedding params are
+    the layers' and the head's matrices and norms; attention is 4 flops per
+    unmasked (q, k) pair per head dim forward, three times that in all."""
+    d, ff, h, g, e = (cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.num_kv_heads,
+                      cfg.resolved_head_dim)
+    layer = d * h * e * 2 + d * g * e * 2 + 3 * d * ff + 2 * d
+    n = cfg.num_layers * layer + d * cfg.vocab_size + d
+    attn = 3 * 4 * b * h * e * (s * (s + 1) // 2) * cfg.num_layers
+    return 6.0 * n * b * s, float(attn)
+
+
+def rounded_p(torch, fa):
+    """flash_attention_plain with the one rounding the kernel adds: the
+    unnormalised probabilities rounded to bf16 before P.V, the row sums
+    taken from the float32 ones (measurement only)."""
+    def plain(q, k, v, causal=True, scale=None):
+        b, sq, h, e = q.shape
+        skv, g = k.shape[1], k.shape[2]
+        s = torch.einsum("bqgre,bkge->bgrqk",
+                         q.reshape(b, sq, g, h // g, e).float(), k.float())
+        s.mul_(scale or e ** -0.5)
+        if causal:
+            keep = torch.ones((sq, skv), dtype=torch.bool,
+                              device=q.device).tril(skv - sq)
+            s.masked_fill_(~keep, fa.NEG)
+        s.sub_(s.amax(-1, keepdim=True)).exp_()
+        l = s.sum(-1, keepdim=True)
+        o = torch.einsum("bgrqk,bkge->bgrqe", s.bfloat16().float(), v.float())
+        o = (o / l).permute(0, 3, 1, 2, 4)
+        return o.reshape(b, sq, h, e).to(q.dtype)
+    return plain
+
+
+TRAIN_RANGES = ("flash_attention_backward", "softmax_xent_chunked",
+                "softmax_xent_chunked_backward", "adamw_update")
+
+
+def train_breakdown(torch, prof, wall_ms: float) -> str:
+    """Device time of one profiled step: busy share (kernels only), the
+    flash kernel, the GEMMs, and the device spans of the port's
+    record_function ranges (the attention backward, the cross-entropy and
+    AdamW, GEMMs inside included), which the profiler lists beside the
+    kernels."""
+    from torch.autograd import DeviceType
+    import re
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    spans = {e.key: e.self_device_time_total / 1e3 for e in dev
+             if e.key in TRAIN_RANGES}
+    kern = [e for e in dev if e.key not in TRAIN_RANGES]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    flash = sum(e.self_device_time_total for e in kern
+                if "flash_attention" in e.key) / 1e3
+    gemm = sum(e.self_device_time_total for e in kern
+               if re.search(r"gemm|nvjet|xmma|cutlass|sm90_", e.key, re.I)) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    return (f"host {wall_ms:.3f} ms (profiler on), device busy {busy:.3f} ms "
+            f"({100 * busy / wall_ms:.1f}%, idle {100 * (1 - busy / wall_ms):.1f}%);"
+            f" flash_attention wgmma kernel {flash:.3f} ms; GEMM kernels "
+            f"{gemm:.3f} ms; device spans of the ranges: "
+            + ", ".join(f"{k} {v:.3f} ms ({100 * v / wall_ms:.1f}%)"
+                        for k, v in sorted(spans.items()))
+            + "; top kernels: " + "; ".join(
+                f"{e.key[:50]} {e.self_device_time_total / 1e3:.3f} ms "
+                f"x{e.count}" for e in top))
+
+
+def run_lm_training(torch, args, card: str, failures: list) -> dict:
+    """yi-6b at full width (16 layers) through Trainer.run, each step
+    counted and timed; kernel against plain on the first step; the kernel
+    and the plain backward at the training shape; a bit-exact crash-resume
+    on one full-width layer; the training CLI. Returns the kernel's
+    training launches and timing record."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint import latest, load, save
+    from repro_torch.common import param_bytes, param_count, tree_paths
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for_step
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, loss_and_grads
+    from repro_torch.optim import OptConfig
+    from repro_torch.runtime import SimulatedFailure, Trainer
+
+    def grads_by_path(model, params, batch):
+        loss, _, grads = loss_and_grads(model, params, batch)
+        return loss, dict(tree_paths(grads))
+
+    cfg = dataclasses.replace(get_config("yi-6b"), num_layers=TRAIN_LAYERS)
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_ROWS, "train")
+    tokens = TRAIN_SEQ * TRAIN_ROWS
+    dense_flops, attn_flops = train_model_flops(cfg, TRAIN_ROWS, TRAIN_SEQ)
+    flops = dense_flops + attn_flops
+    steps: list[dict] = []
+    init: dict = {}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as workdir:
+        trainer = Trainer(cfg, shape, workdir, OptConfig(warmup_steps=10),
+                          ckpt_every=TRAIN_STEPS + 1, seed=args.seed)
+        inner = trainer.step_fn
+
+        def step_fn(params, opt_state, batch):
+            i = len(steps)
+            if i == 0:
+                init.update((p, t.detach().to("cpu", copy=True))
+                            for p, t in tree_paths(params))
+            torch.cuda.synchronize()
+            ops.reset_launches()         # the main path: counts to 0 just before
+            if i == TRAIN_STEPS - 1:
+                prof.start()
+            t0 = time.perf_counter()
+            out = inner(params, opt_state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if i == TRAIN_STEPS - 1:
+                prof.stop()
+            m = out[2]
+            rec = dict(ms=ms, launches=ops.launches["flash_attention"],
+                       variants=dict(ops.flash_attention_variants),
+                       loss=float(m["loss"]), gnorm=float(m["grad_norm"]),
+                       lr=float(m["lr"]))
+            steps.append(rec)
+            role = ("warm-up" if i == 0 else "profiled"
+                    if i == TRAIN_STEPS - 1 else "timed")
+            log(f"[train] step {i} ({role}): {ms:.3f} ms, "
+                f"{tokens / (ms / 1e3):.1f} tokens/s, loss {rec['loss']:.6f}, "
+                f"grad_norm {rec['gnorm']:.6f}, lr {rec['lr']:.6e}, "
+                f"flash_attention launches {rec['launches']} "
+                f"{rec['variants']}; {card}")
+            return out
+
+        trainer.step_fn = step_fn
+        params, _, _ = trainer.run(TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        unchanged = {"/".join(p): bool((init[p] == 1).all())
+                     for p, t in tree_paths(params)
+                     if torch.equal(t.cpu(), init[p])}
+        # a norm weight starts at 1.0 in bf16, where the next values are
+        # 2^-8 below and 2^-7 above: an update under 2^-9 rounds away
+        stuck = [n for n, ones in unchanged.items() if not ones]
+        n_params, n_bytes = param_count(params), param_bytes(params)
+        del trainer, params, inner
+    torch.cuda.empty_cache()
+    step_ms = statistics.median(r["ms"] for r in steps[1:TRAIN_STEPS - 1])
+    log(f"[train] yi-6b {TRAIN_LAYERS} of 32 layers, d {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} x {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, bf16, remat "
+        f"{cfg.remat_policy!r}; {n_params / 1e9:.4f} B params "
+        f"({n_bytes / 1e9:.3f} GB); batch {TRAIN_ROWS} x {TRAIN_SEQ}; step "
+        f"{step_ms:.3f} ms (median of steps 1-{TRAIN_STEPS - 2}), "
+        f"{tokens / (step_ms / 1e3):.1f} tokens/s; model FLOPs a step "
+        f"{flops:.4e} ({dense_flops:.4e} dense + {attn_flops:.4e} attention),"
+        f" {flops / (step_ms / 1e3) / 1e12:.1f} TFLOP/s, "
+        f"{100 * flops / (step_ms / 1e3) / BF16_FLOPS:.1f}% of "
+        f"{BF16_FLOPS / 1e12:.1f}; peak memory {peak} bytes "
+        f"({peak / 2 ** 30:.2f} GiB); leaves changed "
+        f"{len(init) - len(unchanged)}/{len(init)}; unchanged: "
+        f"{sorted(unchanged)} (norm weights at 1.0: the largest lr, "
+        f"{steps[-1]['lr']:.2e}, moves one by less than 2^-9, half a bf16 "
+        f"step there); "
+        f"{card}")
+    try:
+        log(f"[train] profile of step {TRAIN_STEPS - 1}: "
+            + train_breakdown(torch, prof, steps[-1]["ms"]) + f"; {card}")
+    except Exception as e:                   # noqa: BLE001 — reported
+        log(f"[train] profile unavailable ({type(e).__name__}: {e})")
+    del prof
+    want = {"wgmma": 2 * TRAIN_LAYERS, "simt": 0}
+    for i, r in enumerate(steps):
+        if r["launches"] != 2 * TRAIN_LAYERS or r["variants"] != want:
+            failures.append(f"train step {i}: flash_attention launches "
+                            f"{r['launches']} {r['variants']}, want "
+                            f"{2 * TRAIN_LAYERS} (forward + recompute), all "
+                            f"wgmma")
+        if not (math.isfinite(r["loss"]) and r["gnorm"] > 0):
+            failures.append(f"train step {i}: loss {r['loss']}, grad_norm "
+                            f"{r['gnorm']}")
+    if len(steps) != TRAIN_STEPS or stuck:
+        failures.append(f"train: {len(steps)} steps, leaves unchanged: "
+                        f"{stuck}")
+
+    # kernel against plain on the first step's weights and batch
+    model = build_model(cfg, "cuda")
+    params = model.init_params(args.seed)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             batch_for_step(cfg, shape, 0, args.seed).items()}
+    x = {}
+
+    def kernel_run():
+        x["out"] = grads_by_path(model, params, batch)
+
+    x.update(first_call_args(ops, "flash_attention", kernel_run))
+    loss_k, g_k = x.pop("out")
+    model_t = build_model(dataclasses.replace(cfg, attention_impl="torch"),
+                          "cuda")
+    loss_t, g_t = grads_by_path(model_t, params, batch)
+    plain = fa.flash_attention_plain
+    fa.flash_attention_plain = rounded_p(torch, fa)
+    try:
+        loss_r, g_r = grads_by_path(model_t, params, batch)
+    finally:
+        fa.flash_attention_plain = plain
+    n_k, n_t = grad_norm(g_k), grad_norm(g_t)
+    d_loss = abs(float(loss_k) - float(loss_t)) / abs(float(loss_t))
+    d_norm = abs(n_k - n_t) / n_t
+
+    def leaf_diff(g):
+        return {"/".join(p): float((g[p].float() - g_t[p].float()).abs().max())
+                / float(g_t[p].float().abs().max()) for p in g_t}
+    worst, model_worst = leaf_diff(g_k), leaf_diff(g_r)
+    log(f"[train] kernel vs torch, step 0: loss {float(loss_k):.6f} / "
+        f"{float(loss_t):.6f} (rel {d_loss:.3e}, bound {TRAIN_LOSS_TOL:.3e}); "
+        f"grad_norm {n_k:.6f} / {n_t:.6f} (rel {d_norm:.3e}, bound "
+        f"{TRAIN_GNORM_TOL:.3e}); the plain model of the kernel's bf16 P: "
+        f"loss {float(loss_r):.6f}, grad_norm {grad_norm(g_r):.6f}; "
+        f"max|dgrad| / max|grad| by leaf, kernel / model (bound "
+        f"{TRAIN_GRAD_RATIO} x model): " + ", ".join(
+            f"{k} {v:.3e} / {model_worst[k]:.3e}" for k, v in worst.items())
+        + f"; {card}")
+    if not d_loss <= TRAIN_LOSS_TOL:
+        failures.append(f"train: kernel and torch losses differ by {d_loss}")
+    if not d_norm <= TRAIN_GNORM_TOL:
+        failures.append(f"train: kernel and torch grad norms differ by {d_norm}")
+    for k, v in worst.items():
+        if not v <= TRAIN_GRAD_RATIO * model_worst[k]:
+            failures.append(f"train: kernel and torch {k} gradients differ "
+                            f"by {v} of the largest, the model by "
+                            f"{model_worst[k]}")
+    del g_k, g_t, g_r, model_t
+
+    # the kernel and the plain backward at layer 0's training (q, k, v),
+    # timed without the Trainer's deterministic algorithms (which fill each
+    # new output with NaN and keep SDPA off its cuDNN backend)
+    torch.use_deterministic_algorithms(False)
+    x = {k: v.detach() if isinstance(v, torch.Tensor) else v
+         for k, v in x.items()}
+    kernel = time_flash_attention(torch, ops, x, "yi-6b training layer 0",
+                                  card)
+    q, k, v = x["q"], x["k"], x["v"]
+    o = ops.flash_attention(q, k, v, True)
+    do = torch.randn(o.shape, device="cuda", dtype=o.dtype,
+                     generator=torch.Generator("cuda").manual_seed(args.seed))
+    t_bwd = cuda_ms(torch, lambda: fa.flash_attention_backward_plain(
+        q, k, v, o, do, True), iters=3, warmup=1)
+    b, s, h, e = q.shape
+    bwd_flops = 10 * b * h * e * (s * (s + 1) // 2)   # 5 products, causal
+    log(f"[timing] flash_attention_backward_plain at {tuple(q.shape)} k/v "
+        f"{tuple(k.shape)} bf16 causal: {t_bwd:.6f} ms; {bwd_flops:.4e} "
+        f"flops of a fused backward ({bwd_flops / BF16_FLOPS * 1e3:.6f} ms "
+        f"at the bf16 tensor peak); {card}")
+    kernel["train_backward_plain_ms"] = t_bwd
+    # held against autograd of the plain forward, on a shorter sequence
+    qs, ks, vs, dos = (t[:1, :BWD_SEQ].contiguous() for t in (q, k, v, do))
+    got = fa.flash_attention_backward_plain(
+        qs, ks, vs, fa.flash_attention_plain(qs, ks, vs), dos)
+    leaves = [t.clone().requires_grad_() for t in (qs, ks, vs)]
+    fa.flash_attention_plain(*leaves).backward(dos)
+    bwd_err = max(float((a.float() - w.grad.float()).abs().max())
+                  / float(w.grad.float().abs().max())
+                  for a, w in zip(got, leaves))
+    log(f"[train] flash_attention_backward_plain vs autograd of the plain "
+        f"forward at q {tuple(qs.shape)}: max|d| / max|grad| {bwd_err:.3e} "
+        f"(bound {BWD_TOL:.3e}); {card}")
+    if not bwd_err <= BWD_TOL:
+        failures.append(f"train: the plain backward differs from autograd "
+                        f"by {bwd_err} of the largest gradient")
+    del model, params, batch, x, q, k, v, o, do, got, leaves
+    torch.cuda.empty_cache()
+
+    # determinism, then a bit-exact crash-resume on one full-width layer
+    one = dataclasses.replace(cfg, num_layers=1)
+    rshape = ShapeConfig("resume", RESUME_SEQ, 1, "train")
+    opt = OptConfig(warmup_steps=10)
+    m1 = build_model(one, "cuda")
+    p1 = m1.init_params(args.seed)
+    b1 = {k: torch.from_numpy(v).cuda() for k, v in
+          batch_for_step(one, rshape, 0, args.seed).items()}
+    for flag in (False, True):
+        torch.use_deterministic_algorithms(flag)
+        _, ga = grads_by_path(m1, p1, b1)
+        _, gb = grads_by_path(m1, p1, b1)
+        differ = ["/".join(p) for p in ga if not torch.equal(ga[p], gb[p])]
+        log(f"[train] determinism: use_deterministic_algorithms({flag}): "
+            f"gradient leaves that differ between two identical steps: "
+            f"{differ or 'none'}; {card}")
+        if flag and differ:
+            failures.append(f"train: gradients not reproducible under "
+                            f"deterministic algorithms: {differ}")
+    del m1, p1, b1, ga, gb
+    with tempfile.TemporaryDirectory() as root:
+        d1, d2 = os.path.join(root, "a"), os.path.join(root, "b")
+        run = lambda d: Trainer(one, rshape, d, opt, ckpt_every=RESUME_EVERY,
+                                seed=args.seed)
+        pa, sa, ma = run(d1).run(RESUME_STEPS)
+        shutil.rmtree(d1)
+        crashed = run(d2)
+        try:
+            crashed.run(RESUME_STEPS, fail_at=RESUME_FAIL)
+            failures.append("train: the injected failure did not happen")
+        except SimulatedFailure:
+            pass
+        # the step-4 checkpoint was published before the crash (a process
+        # that dies loses only the write in flight); here its writer thread
+        # lives on, so wait for it before resuming from it
+        crashed.ckpt.wait()
+        resumed_from = latest(d2) or "none"
+        del crashed
+        pb, sb, mb = run(d2).run(RESUME_STEPS)
+        same = [torch.equal(a, b) for (_, a), (_, b) in
+                zip(tree_paths((pa, sa)), tree_paths((pb, sb)))]
+        exact = (all(same) and float(ma["loss"]) == float(mb["loss"])
+                 and resumed_from.endswith(f"step_{RESUME_EVERY:08d}"))
+        shutil.rmtree(d2)
+        trees = {"params": pb, "opt_state": sb}
+        nbytes = param_bytes(trees)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(os.path.join(root, "c"), RESUME_STEPS, trees)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, back = load(path, trees)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        roundtrip = all(torch.equal(a, b) for (_, a), (_, b) in
+                        zip(tree_paths(trees), tree_paths(back)))
+    log(f"[train] crash-resume (1 layer at full width and vocab, 1 x "
+        f"{RESUME_SEQ}, {RESUME_STEPS} steps, checkpoint every "
+        f"{RESUME_EVERY}, killed at step {RESUME_FAIL}, resumed from "
+        f"{os.path.basename(resumed_from)}): bit-exact {exact} "
+        f"({sum(same)}/{len(same)} leaves equal, loss {float(ma['loss']):.6f}"
+        f" / {float(mb['loss']):.6f}); a checkpoint of {nbytes} bytes: write "
+        f"{t_save:.3f} s ({nbytes / t_save / 1e9:.3f} GB/s), load "
+        f"{t_load:.3f} s ({nbytes / t_load / 1e9:.3f} GB/s), round trip "
+        f"exact {roundtrip}; {card}")
+    if not (exact and roundtrip):
+        failures.append(f"train: crash-resume bit-exact {exact}, checkpoint "
+                        f"round trip exact {roundtrip}")
+    del pa, sa, pb, sb, trees, back
+    torch.cuda.empty_cache()
+
+    # the training CLI, as a user runs it
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "yi-6b", "--smoke", "--steps", "3", "--workdir", workdir],
+            env=dict(os.environ, PYTHONPATH=str(SRC)), capture_output=True,
+            text=True, timeout=600)
+    log(f"[train] python -m repro_torch.launch.train --arch yi-6b --smoke "
+        f"--steps 3: rc {out.returncode}, {time.perf_counter() - t0:.1f} s: "
+        + " | ".join(out.stdout.strip().splitlines()[-3:]))
+    if out.returncode != 0 or "done on cuda" not in out.stdout:
+        failures.append(f"train CLI: rc {out.returncode}\n{out.stdout}\n"
+                        f"{out.stderr}")
+    kernel["train_launches"] = sum(r["launches"] for r in steps)
+    kernel["train_step_ms"] = step_ms
+    return kernel
 
 
 def phase_done(name: str, t0: float) -> float:
@@ -2588,12 +3010,38 @@ def main() -> int:
     except Exception:
         failures.append(f"phase LM serving:\n{traceback.format_exc()}")
     lm_peak = torch.cuda.max_memory_allocated()
-    phase_done("LM serving", t_phase)
+    t_phase = phase_done("LM serving", t_phase)
+
+    # training at full width, after serving's weights are freed
+    torch.cuda.empty_cache()
+    try:
+        train = run_lm_training(torch, args, card, failures)
+        k = next((k for k in kernels if k["name"] == "flash_attention"), None)
+        if k is None:
+            failures.append("phase LM training: no flash_attention record "
+                            "from LM serving")
+        else:
+            k["launches"] += train["train_launches"]
+            k["train_launches"] = train["train_launches"]
+            k["train_step_ms"] = train["train_step_ms"]
+            k["mismatches"] += train["mismatches"]
+            k["max_abs_err"] = max(k["max_abs_err"], train["max_abs_err"])
+            k["train_shape"] = {key: train[key] for key in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err", "train_backward_plain_ms")}
+            if train["mismatches"]:
+                failures.append("flash_attention: mismatches against the "
+                                "plain version at the training shape")
+    except Exception:
+        failures.append(f"phase LM training:\n{traceback.format_exc()}")
+    train_peak = torch.cuda.max_memory_allocated()
+    phase_done("LM training", t_phase)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"memory: max_memory_allocated {peak} bytes "
         f"({peak / 2 ** 30:.2f} GiB) over the main path; {lm_peak} bytes "
-        f"({lm_peak / 2 ** 30:.2f} GiB) over LM serving")
+        f"({lm_peak / 2 ** 30:.2f} GiB) over LM serving; {train_peak} bytes "
+        f"({train_peak / 2 ** 30:.2f} GiB) over LM training")
     if failures:
         for f in failures:
             print(f"FAILED: {f}", file=sys.stderr)

@@ -7,7 +7,8 @@ head i // (h // g), and return o (b, sq, h, e) in q's dtype: the contract
 of the TPU kernel ``repro.kernels.ops.flash_attention``. The causal mask is
 end-aligned, k_pos <= q_pos + (skv - sq), as in the JAX package's
 ``ref.attention_ref``; at sq == skv it is the Pallas kernel's mask.
-``kernels/ops.py`` chooses between them.
+``kernels/ops.py`` chooses between them. ``flash_attention_backward_plain``
+is the gradient of that function, in plain PyTorch, for both.
 
 The CUDA source holds two kernels, and ``variant`` picks one by dtype and
 head dim: "wgmma" (bf16 on the tensor cores, TMA-fed; P rounded to bf16
@@ -32,6 +33,9 @@ HEAD_DIMS = (16, 32, 64, 128)
 WGMMA_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 NEG = -1e30
+BWD_BLOCK_Q = 256        # query rows a step of the plain backward: its float32
+                         # (b, h, 256, skv) P, dP and dS are 268 MB each at
+                         # yi-6b's training shape (b 2, h 32, skv 4096)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -52,6 +56,56 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     del s
     o = torch.einsum("bgrqk,bkge->bqgre", p, v.float())
     return o.reshape(b, sq, h, e).to(q.dtype)
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, o: torch.Tensor,
+                                   do: torch.Tensor, causal: bool = True,
+                                   scale: float | None = None,
+                                   block_q: int = BWD_BLOCK_Q):
+    """The gradient of the kernels' function: (dq, dk, dv) for the output
+    `o` and its cotangent `do`, in the dtypes of q, k and v.
+
+    Blockwise over query blocks of `block_q` rows: each block recomputes
+    its scores from q and k in float32 (the full (b, h, s, s) score matrix
+    is never held), takes P by a float32 softmax over the keys the block
+    can see (a causal block stops at its last row's diagonal), and with
+    D = rowsum(do * o) forms dS = P (dO V^T - D); then dq = dS K scale,
+    dk += dS^T Q scale, dv += P^T dO, dk and dv summed over each kv head's
+    query heads (query head i reads kv head i // (h // g)). Products and
+    sums in float32. It replaces no TPU kernel: the JAX package
+    differentiates its blockwise attention by autodiff."""
+    with torch.profiler.record_function("flash_attention_backward"):
+        b, sq, h, e = q.shape
+        skv, g = k.shape[1], k.shape[2]
+        r = h // g
+        scale = scale or e ** -0.5
+        kf, vf = k.float(), v.float()
+        dq = torch.empty_like(q)
+        dk = torch.zeros((b, skv, g, e), dtype=torch.float32, device=q.device)
+        dv = torch.zeros_like(dk)
+        for i0 in range(0, sq, block_q):
+            i1 = min(i0 + block_q, sq)
+            n = min(skv, i1 + skv - sq) if causal else skv
+            split = lambda t: t[:, i0:i1].float().reshape(b, i1 - i0, g, r, e)
+            qb, ob, dob = split(q), split(o), split(do)
+            kb, vb = kf[:, :n], vf[:, :n]
+            s = torch.einsum("bqgre,bkge->bgrqk", qb, kb)
+            s.mul_(scale)
+            if causal:
+                keep = torch.ones((i1 - i0, n), dtype=torch.bool,
+                                  device=q.device).tril(i0 + skv - sq)
+                s.masked_fill_(~keep, NEG)
+            p = torch.softmax(s, dim=-1)
+            del s
+            dd = (dob * ob).sum(-1).permute(0, 2, 3, 1)      # (b, g, r, bq)
+            ds = torch.einsum("bqgre,bkge->bgrqk", dob, vb)
+            ds.sub_(dd[..., None]).mul_(p)
+            dq[:, i0:i1] = (torch.einsum("bgrqk,bkge->bqgre", ds, kb)
+                            .mul_(scale).reshape(b, i1 - i0, h, e))
+            dk[:, :n] += torch.einsum("bgrqk,bqgre->bkge", ds, qb).mul_(scale)
+            dv[:, :n] += torch.einsum("bgrqk,bqgre->bkge", p, dob)
+        return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 def variant(q: torch.Tensor) -> str:

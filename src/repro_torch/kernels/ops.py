@@ -181,16 +181,7 @@ def probe_gather(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                             *_pg.encode_masks(flt_mask, eq_positions))
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, scale: float | None = None,
-                    impl: str = "kernel") -> torch.Tensor:
-    """Forward attention, q (b, sq, h, e) against k, v (b, skv, g, e);
-    returns (b, sq, h, e) in q's dtype. Causal needs sq <= skv: with the
-    end-aligned mask a query row before the first key has nothing to
-    attend to."""
-    if causal and q.shape[1] > k.shape[1]:
-        raise ValueError(f"causal attention needs sq <= skv, got sq="
-                         f"{q.shape[1]} and skv={k.shape[1]}")
+def _flash_attention_forward(q, k, v, causal, scale, impl):
     if not _use_kernel(impl, q):
         return _fa.flash_attention_plain(q, k, v, causal, scale)
     out = _fa.flash_attention_cuda(q, k, v, causal, scale)
@@ -198,3 +189,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _count(launches, "flash_attention")
         _count(flash_attention_variants, _fa.variant(q))
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward of ``flash_attention`` with the plain backward: a
+    recompute under checkpointing runs the forward (and launches the
+    kernel) again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, impl):
+        o = _flash_attention_forward(q, k, v, causal, scale, impl)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = _fa.flash_attention_backward_plain(q, k, v, o, do,
+                                                        ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale: float | None = None,
+                    impl: str = "kernel") -> torch.Tensor:
+    """Forward attention, q (b, sq, h, e) against k, v (b, skv, g, e);
+    returns (b, sq, h, e) in q's dtype. Causal needs sq <= skv: with the
+    end-aligned mask a query row before the first key has nothing to
+    attend to. Differentiable: where grad mode is on and an input requires
+    grad, the output's backward is ``flash_attention_backward_plain``."""
+    if causal and q.shape[1] > k.shape[1]:
+        raise ValueError(f"causal attention needs sq <= skv, got sq="
+                         f"{q.shape[1]} and skv={k.shape[1]}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, scale, impl)
+    return _flash_attention_forward(q, k, v, causal, scale, impl)

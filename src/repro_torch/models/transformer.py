@@ -2,25 +2,57 @@
 
 The JAX package's ``TransformerLM`` with the same parameter tree (stacked
 per-layer tensors under ``dense_layers``, JAX's weight layouts and einsum
-strings) and the same serving entry points: ``prefill`` fills a KV cache
-with a 64-position decode margin, ``decode_step`` extends it by one token.
-The JAX ``lax.scan`` over the stacked layers is a Python loop over the
-layer index. The MoE, MLA, vlm and audio variants, the loss and the
-training path belong to later slices and raise ``NotImplementedError``.
+strings), the same training loss (``loss``: the blocks under the config's
+remat policy, the chunked cross-entropy) and the same serving entry
+points: ``prefill`` fills a KV cache with a 64-position decode margin,
+``decode_step`` extends it by one token. The JAX ``lax.scan`` over the
+stacked layers is a Python loop over the layer index. The MoE, MLA, vlm,
+audio and multi-token-prediction variants belong to later slices and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from repro_torch.common import dtype_of, resolve_device, tree_map_with_path
+from repro_torch.common import (dtype_of, resolve_device, tree_map_with_path,
+                                tree_paths)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import embedding as embed_lib
-from repro_torch.models.layers import apply_rope, rms_norm, swiglu
+from repro_torch.models.layers import (apply_rope, rms_norm,
+                                      softmax_xent_chunked, swiglu)
 from repro_torch.models.params import ParamDef, init_params, pdef, stack_defs
+
+
+def _save_dots_without_batch_dims(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: keep the outputs of the
+    weight products (``mm``, and the one-batch ``bmm`` that ``einsum``
+    lowers them to), recompute the rest."""
+    if op == torch.ops.aten.mm.default or (
+            op == torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    """`fn` under the JAX package's remat policy. "names" saves only the
+    layer input (the JAX package names it "layer_in"), which is what a
+    checkpoint of the block keeps, its inputs: so here it is "full". The
+    blocks draw no random numbers, so no RNG state is stashed."""
+    if policy == "none":
+        return fn
+    kw = {}
+    if policy == "minimal":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots_without_batch_dims)
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False, **kw)
 
 
 class TransformerLM(nn.Module):
@@ -111,6 +143,7 @@ class TransformerLM(nn.Module):
             k = rms_norm(k, p["kn"], eps)
         q = apply_rope(q, positions, c.rope_theta)
         k = apply_rope(k, positions, c.rope_theta)
+        new_kv = None
         if mode == "decode":
             kc, vc = cache
             idx = torch.clamp(cur_len, max=kc.shape[1] - 1).reshape(1).long()
@@ -118,11 +151,11 @@ class TransformerLM(nn.Module):
             vc.index_copy_(1, idx, v.to(vc.dtype))
             o = attn_lib.decode_attention(q, kc.to(self.adt), vc.to(self.adt),
                                           cur_len + 1)
-            new_kv = None
         else:
             o = attn_lib.attention(q, k, v,
                                    impl=c.attention_impl, causal=True)
-            new_kv = (k, v)
+            if mode == "prefill":
+                new_kv = (k, v)
         out = torch.einsum("bshe,hed->bsd", o, p["wo"])
         return x + out, new_kv
 
@@ -136,9 +169,13 @@ class TransformerLM(nn.Module):
         return self._ffn(p["mlp"], x), new_kv
 
     def _layers(self, params):
+        """Each layer's parameters, taken with one ``unbind(0)`` a stacked
+        leaf: its backward writes the leaf's gradient once, where one
+        ``t[i]`` a layer would write a zeroed whole-leaf gradient a layer."""
         stacked = params["dense_layers"]
+        parts = {path: t.unbind(0) for path, t in tree_paths(stacked)}
         for i in range(self.cfg.num_layers):
-            yield i, tree_map_with_path(lambda _, t: t[i], stacked)
+            yield i, tree_map_with_path(lambda path, _: parts[path][i], stacked)
 
     # ------------------------------------------------------------------
     # Embedding / head
@@ -154,6 +191,27 @@ class TransformerLM(nn.Module):
 
     def _last_logits(self, params, h):
         return torch.einsum("bsd,dv->bsv", h, self._head_w(params))[:, 0]
+
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+    def loss(self, params, batch):
+        """batch: tokens (b, s), labels (b, s) with -1 at masked positions.
+        Returns (loss, {"ce", "aux"}): the mean cross-entropy over unmasked
+        positions plus router_aux_weight * aux (0 for the dense model)."""
+        c = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        x = self._embed_tokens(params, tokens)
+        positions = torch.arange(x.shape[1], device=x.device)[None]
+        block = _remat(functools.partial(self._block, mode="train"),
+                       c.remat_policy)
+        for _, p in self._layers(params):
+            x, _ = block(p, x, positions)
+        h = rms_norm(x, params["final_norm"], c.norm_eps)
+        mask = (labels >= 0).float()
+        ce = softmax_xent_chunked(h, self._head_w(params), labels, mask)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return ce + c.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------------
     # Serving
