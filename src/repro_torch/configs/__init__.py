@@ -4,4 +4,7 @@ from repro_torch.configs.base import (  # noqa: F401
     SHAPES, ModelConfig, ShapeConfig, get_config, list_archs,
     reduce_for_smoke, runnable_shapes,
 )
-from repro_torch.configs import yi_6b  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    dbrx_132b, deepseek_7b, musicgen_large, pixtral_12b, qwen3_8b, yi_34b,
+    yi_6b,
+)

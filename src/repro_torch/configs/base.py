@@ -195,9 +195,7 @@ def runnable_shapes(cfg: ModelConfig) -> list[ShapeConfig]:
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 
 # architectures of the JAX package whose model families are not ported yet
-NOT_PORTED = ("dbrx-132b", "deepseek-7b", "deepseek-v3-671b", "musicgen-large",
-              "pixtral-12b", "qwen3-8b", "recurrentgemma-9b", "xlstm-125m",
-              "yi-34b")
+NOT_PORTED = ("deepseek-v3-671b", "recurrentgemma-9b", "xlstm-125m")
 
 
 def register(name: str):

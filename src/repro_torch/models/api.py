@@ -13,7 +13,7 @@ import torch
 from repro_torch.common import tree_map_with_path, tree_paths
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models.params import pdef
-from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.transformer import VIT_DIM, TransformerLM
 from repro_torch.optim.adamw import OptConfig, adamw_update
 
 
@@ -29,8 +29,11 @@ def input_defs(cfg: ModelConfig, shape: ShapeConfig,
     """ParamDef tree for the step inputs of one (arch x shape) cell.
 
     With micro_batches > 1, train inputs carry a leading microbatch dim:
-    (n_micro, rows, seq), which ``make_train_step`` walks."""
-    if cfg.family != "dense":
+    (n_micro, rows, seq), which ``make_train_step`` walks. The modality
+    frontends are stubs: the vlm family takes precomputed patch
+    embeddings (num_patches of the shape's positions), the audio family
+    one token a codebook at each position."""
+    if cfg.family not in ("dense", "moe", "vlm", "audio"):
         raise NotImplementedError(
             f"{cfg.name}: inputs of the {cfg.family} family are not ported yet")
     b, s, kind = shape.global_batch, shape.seq_len, shape.kind
@@ -43,11 +46,24 @@ def input_defs(cfg: ModelConfig, shape: ShapeConfig,
                              f"microbatches")
         b = b // micro_batches
         lead, lead_axes = (micro_batches,), (None,)
+    tail: tuple[int, ...] = ()
+    tail_axes: tuple = ()
+    if cfg.family == "audio":
+        tail, tail_axes = (cfg.num_codebooks,), (None,)
     if kind == "decode":
-        return {"tokens": pdef((b, 1), tok_axes, "int32", "zeros")}
-    out = {"tokens": pdef(lead + (b, s), lead_axes + tok_axes, "int32", "zeros")}
+        return {"tokens": pdef((b, 1) + tail, tok_axes + tail_axes, "int32",
+                               "zeros")}
+    out: dict[str, Any] = {}
+    if cfg.family == "vlm":
+        s = s - cfg.num_patches
+        out["patch_embeds"] = pdef(lead + (b, cfg.num_patches, VIT_DIM),
+                                   lead_axes + ("batch", None, None),
+                                   cfg.activation_dtype, "zeros")
+    tok = pdef(lead + (b, s) + tail, lead_axes + tok_axes + tail_axes,
+               "int32", "zeros")
+    out["tokens"] = tok
     if kind == "train":
-        out["labels"] = pdef(lead + (b, s), lead_axes + tok_axes, "int32", "zeros")
+        out["labels"] = tok
     return out
 
 

@@ -1,14 +1,19 @@
-"""TransformerLM: the dense decoder with grouped-query attention (yi-6b).
+"""TransformerLM: the dense, MoE, vlm and audio decoders with grouped-query
+attention (yi-6b/34b, deepseek-7b, qwen3-8b's qk-norm, dbrx, pixtral's
+backbone, musicgen's backbone).
 
 The JAX package's ``TransformerLM`` with the same parameter tree (stacked
-per-layer tensors under ``dense_layers``, JAX's weight layouts and einsum
-strings), the same training loss (``loss``: the blocks under the config's
-remat policy, the chunked cross-entropy) and the same serving entry
-points: ``prefill`` fills a KV cache with a 64-position decode margin,
-``decode_step`` extends it by one token. The JAX ``lax.scan`` over the
-stacked layers is a Python loop over the layer index. The MoE, MLA, vlm,
-audio and multi-token-prediction variants belong to later slices and
-raise ``NotImplementedError``.
+per-layer tensors under ``dense_layers`` and ``moe_layers``, JAX's weight
+layouts and einsum strings), the same training loss (``loss``: the blocks
+under the config's remat policy, the chunked cross-entropy, the router's
+auxiliary loss) and the same serving entry points: ``prefill`` fills a KV
+cache with a 64-position decode margin, ``decode_step`` extends it by one
+token. The JAX ``lax.scan`` over each group's stacked layers is a Python
+loop over the layer index. The vlm family prepends projected patch
+embeddings (a stub ViT's output) to the text; the audio family sums one
+embedding a codebook and predicts every codebook. MLA, multi-token
+prediction, sliding-window attention and the ssm/hybrid families belong
+to later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,9 +30,13 @@ from repro_torch.common import (dtype_of, resolve_device, tree_map_with_path,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import embedding as embed_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (apply_rope, rms_norm,
                                       softmax_xent_chunked, swiglu)
 from repro_torch.models.params import ParamDef, init_params, pdef, stack_defs
+
+VIT_DIM = 1024  # pixtral ViT stub output width
+GROUPS = (("dense_layers", False), ("moe_layers", True))
 
 
 def _save_dots_without_batch_dims(ctx, op, *args, **kwargs):
@@ -63,14 +72,15 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         unported = [name for name, on in (
-            (f"family {cfg.family!r}", cfg.family != "dense"),
-            ("MLA", cfg.use_mla), ("MoE", bool(cfg.num_experts)),
+            (f"family {cfg.family!r}",
+             cfg.family not in ("dense", "moe", "vlm", "audio")),
+            ("MLA", cfg.use_mla),
             ("multi-token prediction", bool(cfg.mtp_depth)),
             ("sliding-window attention", bool(cfg.window_size))) if on]
         if unported:
             raise NotImplementedError(
                 f"{cfg.name}: {', '.join(unported)} is not ported yet; this "
-                f"package runs the dense GQA decoder only")
+                f"package runs the GQA decoders (dense, MoE, vlm, audio)")
         self.cfg = cfg
         self.device = resolve_device(device, "TransformerLM")
         self.adt = dtype_of(cfg.activation_dtype)
@@ -104,17 +114,53 @@ class TransformerLM(nn.Module):
             "w_down": pdef((d_ff, d), ("mlp", "fsdp"), pd),
         }
 
+    def _moe_defs(self) -> dict[str, ParamDef]:
+        c = self.cfg
+        d, pd = c.d_model, c.param_dtype
+        e, f = c.num_experts, c.moe_d_ff
+        out = {
+            "norm": pdef((d,), ("embed",), pd, "ones"),
+            "router": pdef((d, e), ("embed", "experts"), "float32"),
+            "w_gate": pdef((e, d, f), ("experts", "fsdp", "mlp"), pd),
+            "w_up": pdef((e, d, f), ("experts", "fsdp", "mlp"), pd),
+            "w_down": pdef((e, f, d), ("experts", "mlp", "fsdp"), pd),
+        }
+        if c.num_shared_experts:
+            fs = f * c.num_shared_experts
+            out["shared_w_gate"] = pdef((d, fs), ("fsdp", "mlp"), pd)
+            out["shared_w_up"] = pdef((d, fs), ("fsdp", "mlp"), pd)
+            out["shared_w_down"] = pdef((fs, d), ("mlp", "fsdp"), pd)
+        return out
+
+    def _block_defs(self, moe: bool) -> dict[str, Any]:
+        mix = self._moe_defs() if moe else self._mlp_defs(self.cfg.dense_d_ff or self.cfg.d_ff)
+        return {"attn": self._attn_defs(), "mlp": mix}
+
+    def _group_sizes(self) -> dict[str, int]:
+        """Layers in each group: the leading dense layers of a MoE model
+        (all of a dense one's), then its MoE layers."""
+        c = self.cfg
+        n_dense = c.first_dense_layers if c.num_experts else c.num_layers
+        return {"dense_layers": n_dense, "moe_layers": c.num_layers - n_dense}
+
     def param_defs(self) -> dict[str, Any]:
         c = self.cfg
         d, v, pd = c.d_model, c.vocab_size, c.param_dtype
-        block = {"attn": self._attn_defs(),
-                 "mlp": self._mlp_defs(c.dense_d_ff or c.d_ff)}
-        defs: dict[str, Any] = {
-            "embed": pdef((v, d), ("vocab", "fsdp"), pd),
-            "dense_layers": stack_defs(block, c.num_layers),
-            "final_norm": pdef((d,), ("embed",), pd, "ones"),
-        }
-        if not c.tie_embeddings:
+        defs: dict[str, Any] = {}
+        if c.family == "audio":
+            defs["embed"] = pdef((c.num_codebooks, v, d), ("stack", "vocab", "fsdp"), pd)
+        else:
+            defs["embed"] = pdef((v, d), ("vocab", "fsdp"), pd)
+        if c.family == "vlm":
+            defs["patch_proj"] = pdef((VIT_DIM, d), ("embed", "fsdp"), pd)
+        sizes = self._group_sizes()
+        for group, moe in GROUPS:
+            if sizes[group]:
+                defs[group] = stack_defs(self._block_defs(moe), sizes[group])
+        defs["final_norm"] = pdef((d,), ("embed",), pd, "ones")
+        if c.family == "audio":
+            defs["lm_head"] = pdef((c.num_codebooks, d, v), ("stack", "embed", "vocab"), pd)
+        elif not c.tie_embeddings:
             defs["lm_head"] = pdef((d, v), ("embed", "vocab"), pd)
         return defs
 
@@ -159,30 +205,69 @@ class TransformerLM(nn.Module):
         out = torch.einsum("bshe,hed->bsd", o, p["wo"])
         return x + out, new_kv
 
-    def _ffn(self, p, x):
-        xs = rms_norm(x, p["norm"], self.cfg.norm_eps)
-        return x + swiglu(xs, p["w_gate"], p["w_up"], p["w_down"])
+    def _ffn(self, p, x, moe: bool):
+        """The feed-forward half of a block: (x + ffn, the router's aux
+        loss, 0 for a dense layer)."""
+        c = self.cfg
+        xs = rms_norm(x, p["norm"], c.norm_eps)
+        if moe:
+            b, s, d = xs.shape
+            y, aux, _ = moe_lib.moe_ffn(xs.reshape(b * s, d), p, top_k=c.top_k,
+                                        num_experts=c.num_experts,
+                                        capacity_factor=c.capacity_factor)
+            return x + y.reshape(b, s, d), aux
+        return (x + swiglu(xs, p["w_gate"], p["w_up"], p["w_down"]),
+                torch.zeros((), dtype=torch.float32, device=x.device))
 
-    def _block(self, p, x, positions, *, mode, cache=None, cur_len=None):
+    def _block(self, p, x, positions, moe: bool, *, mode, cache=None,
+               cur_len=None):
         x, new_kv = self._gqa_attention(p["attn"], x, positions, mode=mode,
                                         cache=cache, cur_len=cur_len)
-        return self._ffn(p["mlp"], x), new_kv
+        x, aux = self._ffn(p["mlp"], x, moe)
+        return x, new_kv, aux
 
-    def _layers(self, params):
-        """Each layer's parameters, taken with one ``unbind(0)`` a stacked
-        leaf: its backward writes the leaf's gradient once, where one
-        ``t[i]`` a layer would write a zeroed whole-leaf gradient a layer."""
-        stacked = params["dense_layers"]
+    def _groups(self, params):
+        """(group, moe) of each layer group the parameters hold, in order."""
+        return [(group, moe) for group, moe in GROUPS if group in params]
+
+    def _layers(self, params, group: str):
+        """Each layer's parameters in `group`, taken with one ``unbind(0)``
+        a stacked leaf: its backward writes the leaf's gradient once, where
+        one ``t[i]`` a layer would write a zeroed whole-leaf gradient a
+        layer."""
+        stacked = params[group]
         parts = {path: t.unbind(0) for path, t in tree_paths(stacked)}
-        for i in range(self.cfg.num_layers):
+        n = len(next(iter(parts.values())))
+        for i in range(n):
             yield i, tree_map_with_path(lambda path, _: parts[path][i], stacked)
 
     # ------------------------------------------------------------------
     # Embedding / head
     # ------------------------------------------------------------------
     def _embed_tokens(self, params, tokens):
+        c = self.cfg
+        if c.family == "audio":
+            # tokens: (b, s, K): the codebooks' embeddings summed in order
+            # in the table's dtype, as the reference's reduce(jnp.add)
+            out = embed_lib.embed(params["embed"][0], tokens[..., 0],
+                                  c.embedding_impl)
+            for k in range(1, c.num_codebooks):
+                out = out + embed_lib.embed(params["embed"][k],
+                                            tokens[..., k], c.embedding_impl)
+            return out.to(self.adt)
         return embed_lib.embed(params["embed"], tokens,
-                               self.cfg.embedding_impl).to(self.adt)
+                               c.embedding_impl).to(self.adt)
+
+    def _embed_inputs(self, params, batch):
+        """(x, n_prefix): the token embeddings, behind the projected patch
+        embeddings for the vlm family (n_prefix of them)."""
+        x = self._embed_tokens(params, batch["tokens"])
+        if self.cfg.family != "vlm":
+            return x, 0
+        patches = torch.einsum("bpv,vd->bpd",
+                               batch["patch_embeds"].to(self.adt),
+                               params["patch_proj"]).to(self.adt)
+        return torch.cat([patches, x], dim=1), patches.shape[1]
 
     def _head_w(self, params):
         if self.cfg.tie_embeddings:
@@ -190,27 +275,44 @@ class TransformerLM(nn.Module):
         return params["lm_head"]
 
     def _last_logits(self, params, h):
+        """(b, vocab), or (b, K, vocab) for the audio family."""
+        if self.cfg.family == "audio":
+            return torch.einsum("bsd,kdv->bskv", h, params["lm_head"])[:, 0]
         return torch.einsum("bsd,dv->bsv", h, self._head_w(params))[:, 0]
 
     # ------------------------------------------------------------------
     # Training
     # ------------------------------------------------------------------
     def loss(self, params, batch):
-        """batch: tokens (b, s), labels (b, s) with -1 at masked positions.
-        Returns (loss, {"ce", "aux"}): the mean cross-entropy over unmasked
-        positions plus router_aux_weight * aux (0 for the dense model)."""
+        """batch: tokens (b, s[, K]), labels (b, s[, K]) with -1 at masked
+        positions, and patch_embeds (b, num_patches, VIT_DIM) for the vlm
+        family. Returns (loss, {"ce", "aux"}): the mean cross-entropy over
+        unmasked positions (the text positions for vlm, the mean over the
+        codebooks for audio) plus router_aux_weight * aux, the router
+        losses summed over the MoE layers (0 without experts)."""
         c = self.cfg
-        tokens, labels = batch["tokens"], batch["labels"]
-        x = self._embed_tokens(params, tokens)
+        labels = batch["labels"]
+        x, n_prefix = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None]
-        block = _remat(functools.partial(self._block, mode="train"),
-                       c.remat_policy)
-        for _, p in self._layers(params):
-            x, _ = block(p, x, positions)
-        h = rms_norm(x, params["final_norm"], c.norm_eps)
-        mask = (labels >= 0).float()
-        ce = softmax_xent_chunked(h, self._head_w(params), labels, mask)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for group, moe in self._groups(params):
+            block = _remat(functools.partial(self._block, moe=moe, mode="train"),
+                           c.remat_policy)
+            for _, p in self._layers(params, group):
+                x, _, a = block(p, x, positions)
+                aux = aux + a
+        h = rms_norm(x, params["final_norm"], c.norm_eps)
+        if n_prefix:
+            h = h[:, n_prefix:]
+        mask = (labels >= 0).float()
+        if c.family == "audio":
+            tot = torch.zeros((), dtype=torch.float32, device=x.device)
+            for k in range(c.num_codebooks):
+                tot = tot + softmax_xent_chunked(h, params["lm_head"][k],
+                                                 labels[..., k], mask[..., k])
+            ce = tot / c.num_codebooks
+        else:
+            ce = softmax_xent_chunked(h, self._head_w(params), labels, mask)
         return ce + c.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------------
@@ -222,42 +324,50 @@ class TransformerLM(nn.Module):
         g, e = c.num_kv_heads, c.resolved_head_dim
         per = (pdef((batch, seq_len, g, e), ("batch", None, "kv_heads", "head_dim"), dt, "zeros"),
                pdef((batch, seq_len, g, e), ("batch", None, "kv_heads", "head_dim"), dt, "zeros"))
-        return {"dense_layers": stack_defs(per, c.num_layers),
-                "cur_len": pdef((), (), "int32", "zeros")}
+        defs: dict[str, Any] = {group: stack_defs(per, n) for group, n
+                                in self._group_sizes().items() if n}
+        defs["cur_len"] = pdef((), (), "int32", "zeros")
+        return defs
 
     @torch.inference_mode()
     def prefill(self, params, batch, margin: int = 64):
-        """batch: {"tokens": (b, s) int}. Returns (logits (b, vocab) of the
-        last position, cache): the cache holds (k, v) stacked over layers,
-        (L, b, s + margin, g, e) in ``kv_cache_dtype`` (the margin is decode
-        headroom: without it the first generated token's kv would overwrite
-        the last prompt position), and cur_len = s as a 0-dim int32 tensor."""
-        tokens = batch["tokens"]
-        b, seq = tokens.shape
-        x = self._embed_tokens(params, tokens)
+        """batch: {"tokens": (b, s) int, or (b, s, K) for audio} and, for
+        vlm, "patch_embeds" (b, num_patches, VIT_DIM). Returns (logits of
+        the last position, (b, vocab) or (b, K, vocab) for audio, cache):
+        the cache holds each group's (k, v) stacked over its layers,
+        (L, b, n + margin, g, e) in ``kv_cache_dtype``, n the prompt's
+        positions (patches included; the margin is decode headroom: without
+        it the first generated token's kv would overwrite the last prompt
+        position), and cur_len = n as a 0-dim int32 tensor."""
+        x, _ = self._embed_inputs(params, batch)
+        b, seq = x.shape[:2]
         positions = torch.arange(seq, device=x.device)[None]
         cache = init_params(self.cache_defs(b, seq + margin), 0, x.device)
-        kc, vc = cache["dense_layers"]
-        for i, p in self._layers(params):
-            x, (k, v) = self._block(p, x, positions, mode="prefill")
-            kc[i, :, :seq] = k
-            vc[i, :, :seq] = v
+        for group, moe in self._groups(params):
+            kc, vc = cache[group]
+            for i, p in self._layers(params, group):
+                x, (k, v), _ = self._block(p, x, positions, moe, mode="prefill")
+                kc[i, :, :seq] = k
+                vc[i, :, :seq] = v
         h = rms_norm(x[:, -1:], params["final_norm"], self.cfg.norm_eps)
         cache["cur_len"].fill_(seq)
         return self._last_logits(params, h), cache
 
     @torch.inference_mode()
     def decode_step(self, params, cache, tokens):
-        """tokens: (b, 1) — one new token given an existing cache. The
-        cache's tensors are updated in place (no copy of the whole cache per
-        step); the returned cache holds them with cur_len + 1."""
+        """tokens: (b, 1), or (b, 1, K) for audio — one new token given an
+        existing cache. The cache's tensors are updated in place (no copy
+        of the whole cache per step); the returned cache holds them with
+        cur_len + 1."""
         cur = cache["cur_len"]
         x = self._embed_tokens(params, tokens)
         positions = cur.reshape(1, 1)
-        kc, vc = cache["dense_layers"]
-        for i, p in self._layers(params):
-            x, _ = self._block(p, x, positions, mode="decode",
-                               cache=(kc[i], vc[i]), cur_len=cur)
+        new_cache: dict[str, Any] = {"cur_len": cur + 1}
+        for group, moe in self._groups(params):
+            kc, vc = cache[group]
+            for i, p in self._layers(params, group):
+                x, _, _ = self._block(p, x, positions, moe, mode="decode",
+                                      cache=(kc[i], vc[i]), cur_len=cur)
+            new_cache[group] = (kc, vc)
         h = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        return self._last_logits(params, h), {"dense_layers": (kc, vc),
-                                              "cur_len": cur + 1}
+        return self._last_logits(params, h), new_cache

@@ -266,7 +266,10 @@ def test_config_rejects_the_jax_impl_names(impl):
         (2, 130, 130, 8, 2, 64, True), (1, 63, 1000, 4, 4, 128, True),
         (2, 65, 97, 4, 1, 16, False), (1, 1, 65, 32, 4, 32, True)]]
     # yi-6b's prefill head layout at one full prompt
-    + [("bfloat16", (1, 4000, 4000, 32, 4, 128, True))])
+    + [("bfloat16", (1, 4000, 4000, 32, 4, 128, True))]
+    # dbrx's and yi-34b's GQA ratios of 6 and 7 (not powers of two)
+    + [(dt, shape) for dt in ("float32", "bfloat16") for shape in [
+        (1, 2048, 2048, 48, 8, 128, True), (1, 1000, 1000, 56, 8, 128, True)]])
 def test_cuda_kernel_matches_plain(shape, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")

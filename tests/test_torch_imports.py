@@ -24,8 +24,13 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), bad)
+print(" ".join(names))
 sys.exit(1 if bad else 0)
 """
+# the LM families' modules: every config the port serves and the MoE layer
+FAMILY_MODULES = {f"repro_torch.configs.{m}" for m in (
+    "dbrx_132b", "deepseek_7b", "musicgen_large", "pixtral_12b", "qwen3_8b",
+    "yi_34b", "yi_6b")} | {"repro_torch.models.moe"}
 
 
 def _env():
@@ -38,7 +43,9 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _CHECK], env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 51         # every module was imported
+    count, _, names = out.stdout.partition("\n")
+    assert int(count.split()[0]) >= 58               # every module was imported
+    assert FAMILY_MODULES <= set(names.split())
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in

@@ -199,11 +199,12 @@ def test_entry_points_default_to_cuda(lm):
 
 
 def test_unported_archs_raise():
-    assert list_archs() == ["yi-6b"]
+    assert list_archs() == ["dbrx-132b", "deepseek-7b", "musicgen-large",
+                            "pixtral-12b", "qwen3-8b", "yi-34b", "yi-6b"]
     with pytest.raises(KeyError, match="not ported"):
-        get_config("qwen3-8b")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        build_model(dataclasses.replace(get_config("yi-6b"), num_experts=4),
+        get_config("deepseek-v3-671b")
+    with pytest.raises(NotImplementedError, match="MLA"):
+        build_model(dataclasses.replace(get_config("yi-6b"), use_mla=True),
                     "cpu")
 
 
