@@ -107,7 +107,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
                a MoE layer; prefill ms and tokens/s,
                decode ms/token beside the weight-read floor, peak memory,
                and the kernel at layer 0's (q, k, v) beside SDPA;
-  11. LM training at full width — yi-6b's width (d 4096, 32/4 heads x
+  11. LM MLA — deepseek-v3-671b at full width (d 7168, 128 heads,
+               q_lora 1536, kv_lora 512, dn 128, dr 64, dv 128, 256
+               experts top-8 + 1 shared, bf16, weights from the seed) cut
+               to its 3 dense layers, 1 MoE layer and the MTP module
+               (53.45 GB): (a) 4 prompts of 4000 tokens prefilled and 32
+               tokens decoded through generate (the latent cache, the
+               absorbed decode): prefill ms and tokens/s, decode ms/token
+               beside the time to read what decode reads, peak memory;
+               (b) no kernel launched (MLA reaches none in either
+               package); (c) blockwise MLA against the naive yardstick on
+               layer 0's own inputs (1 x 2048) under the family shapes'
+               attention bound, both timed; (d) prefill(1 x 1024) +
+               decode_step against prefill(1 x 1025) under the decode
+               run's routing, no pair dropped, within the logits gate, the
+               first run free of host syncs; (e) the loss with MTP under
+               no_grad: ce, aux and mtp_ce finite, loss = ce + 1e-3 aux +
+               0.1 mtp_ce; (f) the float8 cache cast on the card equal to
+               the CPU's bit for bit;
+  12. LM training at full width — yi-6b's width (d 4096, 32/4 heads x
                128, d_ff 11008, vocab 64000, bf16) cut to 16 layers,
                batch 2 x 4096 from batch_for_step, remat "names", through
                runtime.Trainer.run for 6 steps (the first a warm-up, the
@@ -124,7 +142,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
                crash-resume on one full-width layer (1 x 1024, 6 steps,
                checkpoint every 4, killed at 5) with checkpoint write and
                load GB/s; `python -m repro_torch.launch.train --smoke`;
-  12. summary — the kernels line, the memory line, the card line, and the
+  13. summary — the kernels line, the memory line, the card line, and the
                result line as the last line.
 It needs a CUDA device and the repository's src/ beside it.
 """
@@ -2835,7 +2853,295 @@ def run_lm_families(torch, args, card: str, failures: list) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: LM training at full width
+# phase 11: deepseek-v3-671b (MLA, 256 experts, MTP) at full width
+# ---------------------------------------------------------------------------
+
+# deepseek-v3-671b at its published width, bf16, cut to 4 of its 61 layers
+# (the 3 dense layers and 1 MoE layer) plus the MTP module: 53.45 GB of
+# weights (embed 1.853, dense layers 3.501, MoE layer 23.018, lm_head 1.853,
+# mtp 23.224). Two MoE layers with MTP would be 76.5 GB, no room for the
+# activations; five layers without MTP would leave MTP off the card.
+MLA_ARCH, MLA_LAYERS = "deepseek-v3-671b", 4
+MLA_SEQ = 2048       # (c): one sequence, blockwise MLA against the naive one
+MLA_CONSIST = 1024   # (d) prefill + one decode step, (e) the MTP loss
+# (f): float8_e4m3fn's edges and subnormals (k x 2^-9), each signed
+F8_EDGES = (448.0, 463.9, 464.0, 464.1, math.inf, math.nan, 2.0 ** -10) + \
+    tuple(k * 2.0 ** -9 for k in range(1, 8))
+
+
+def check_mla_attention(torch, attn_lib, x: dict, card: str,
+                        failures: list) -> dict:
+    """(c) mla_prefill_attention against mla_naive_attention on the first
+    sequence's first MLA_SEQ positions of layer 0's own inputs `x` (the
+    naive run's float32 scores are (1, h, MLA_SEQ, MLA_SEQ)), under the
+    bound time_flash_attention holds at the family shapes; both timed."""
+    q, ckv, kpe = (x[n][:1, :MLA_SEQ].contiguous() for n in ("q", "ckv", "k_pe"))
+    wk, wv, scale = x["kv_b_k"], x["kv_b_v"], x["scale"]
+
+    def blockwise():
+        return attn_lib.mla_prefill_attention(
+            q, ckv, kpe, wk, wv, scale=scale, block_q=x["block_q"],
+            block_kv=x["block_kv"])
+
+    def naive():
+        return attn_lib.mla_naive_attention(q, ckv, kpe, wk, wv, scale=scale)
+
+    got, want = blockwise(), naive()
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    at = [int(i) for i in torch.unravel_index(diff.argmax(), diff.shape)]
+    row = row_rel_err(got, want)
+    top = float(want.float().abs().max())
+    tol = max(ATTN_TOL["bfloat16"], 2 ** -7 * top)
+    del got, want, diff
+    t_block = cuda_ms(torch, blockwise, iters=3, warmup=1)
+    t_naive = cuda_ms(torch, naive, iters=3, warmup=1)
+    h, e, ev = q.shape[2], q.shape[3], wv.shape[-1]
+    flops = 2 * h * (e + ev) * MLA_SEQ * (MLA_SEQ + 1) // 2
+    log(f"[mla] (c) layer 0, 1 x {MLA_SEQ} positions, {h} heads, qk {e}, v "
+        f"{ev}, bf16: blockwise against naive max_abs_err {err:.3e} at "
+        f"(b, s, h, v) {tuple(at)} (bound max(2e-2, 2^-7 x max|o| "
+        f"{top:.4f}) = {tol:.3e}), row_rel_err {row:.3e} (bound "
+        f"{ATTN_ROW_TOL['bfloat16']:.3e}); blockwise {t_block:.3f} ms, naive "
+        f"{t_naive:.3f} ms ({flops:.4e} flops of causal scores and values: "
+        f"{flops / t_block / 1e9:.1f} and {flops / t_naive / 1e9:.1f} "
+        f"TFLOP/s); {card}")
+    if not (err <= tol and row <= ATTN_ROW_TOL["bfloat16"]):
+        failures.append(f"mla (c): blockwise and naive MLA differ by {err} "
+                        f"(bound {tol}), row {row}")
+    return dict(max_abs_err=err, row_rel_err=row, blockwise_ms=t_block,
+                naive_ms=t_naive)
+
+
+def check_mla_decode(torch, model, params, rng, card: str,
+                     failures: list) -> dict:
+    """(d) prefill(1 x MLA_CONSIST) + decode_step(the next token) against
+    the last logits of prefill(1 x MLA_CONSIST + 1), at a capacity factor
+    at which every expert takes every token (no pair dropped), the longer
+    run routed as the decode run routed (`watch_moe`); the first run
+    under torch.cuda's sync debug mode "error": a host sync raises."""
+    import dataclasses
+
+    from repro_torch.models import build_model, moe
+    cfg = model.cfg
+    roomy = build_model(dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.top_k), "cuda")
+    seq = torch.as_tensor(rng.randint(0, cfg.vocab_size, (1, MLA_CONSIST + 1)),
+                          dtype=torch.int32, device="cuda")
+    head, nxt = {"tokens": seq[:, :MLA_CONSIST]}, seq[:, MLA_CONSIST:]
+    calls = {"route": [], "dropped": []}
+    restore = watch_moe(torch, moe, calls)
+    mode = torch.cuda.get_sync_debug_mode()
+    synced = ""
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, cache = roomy.prefill(params, head)
+            got, _ = roomy.decode_step(params, cache, nxt)
+        except RuntimeError as e:                # a host sync: rerun, report
+            synced = str(e).splitlines()[0]
+            torch.cuda.set_sync_debug_mode(mode)
+            calls["route"].clear()
+            calls["dropped"].clear()
+            _, cache = roomy.prefill(params, head)
+            got, _ = roomy.decode_step(params, cache, nxt)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+        restore()
+    del cache
+    if synced:
+        failures.append(f"mla (d): prefill + decode_step synchronised with "
+                        f"the host: {synced}")
+    if len(calls["route"]) != 2:
+        raise RuntimeError(f"mla (d): {len(calls['route'])} routings, want "
+                           f"2 (one MoE layer, two runs)")
+    ids = torch.cat([calls["route"][0][0], calls["route"][1][0]])
+    calls_long = {"route": [], "dropped": []}
+    restore = watch_moe(torch, moe, calls_long, [(ids, None)])
+    try:
+        want, _ = roomy.prefill(params, {"tokens": seq})
+    finally:
+        restore()
+    own = calls_long["route"][0][0]
+    differ = int((own.sort(-1).values != ids.sort(-1).values).any(-1).sum())
+    dropped = [float(d) for d in calls["dropped"] + calls_long["dropped"]]
+    got, want = got.float(), want.float()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    log(f"[mla] (d) prefill(1 x {MLA_CONSIST}) + decode_step against "
+        f"prefill(1 x {MLA_CONSIST + 1}), capacity_factor "
+        f"{roomy.cfg.capacity_factor:g}, the longer run routed as the decode "
+        f"run (its own top-{cfg.top_k} differs at {differ} of "
+        f"{own.shape[0]} tokens): max|logits| {scale:.4f}, max|delta| "
+        f"{err:.5f}, {err / scale:.4f} of max|logits| (bound {LOGIT_TOL}); "
+        f"dropped share by run {dropped}; host syncs under debug mode "
+        f"'error': {synced or 'none'}; {card}")
+    if not (math.isfinite(scale) and err <= LOGIT_TOL * scale):
+        failures.append(f"mla (d): decode and prefill logits differ by {err} "
+                        f"(bound {LOGIT_TOL * scale})")
+    if any(dropped):
+        failures.append(f"mla (d): pairs dropped {dropped}; the comparison "
+                        f"needs none")
+    return dict(rel_err=err / scale, dropped=dropped)
+
+
+def check_mla_mtp(torch, model, params, rng, card: str, failures: list) -> dict:
+    """(e) one model.loss under no_grad on 1 x MLA_CONSIST tokens, labels
+    the next tokens: ce, aux and mtp_ce finite, and the loss equal to
+    ce + router_aux_weight * aux + 0.1 * mtp_ce."""
+    cfg = model.cfg
+    seq = torch.as_tensor(rng.randint(0, cfg.vocab_size, (1, MLA_CONSIST + 1)),
+                          dtype=torch.int32, device="cuda")
+    batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss, met = model.loss(params, batch)
+        torch.cuda.synchronize()
+    t_loss = (time.perf_counter() - t0) * 1e3
+    total = met["ce"] + cfg.router_aux_weight * met["aux"] + 0.1 * met["mtp_ce"]
+    vals = {k: float(v) for k, v in dict(met, loss=loss).items()}
+    same = bool(torch.equal(loss, total))
+    log(f"[mla] (e) loss on 1 x {MLA_CONSIST} under no_grad ({t_loss:.1f} ms "
+        f"host): loss {vals['loss']:.6f}, ce {vals['ce']:.6f}, aux "
+        f"{vals['aux']:.6f}, mtp_ce {vals['mtp_ce']:.6f}; loss == ce + "
+        f"{cfg.router_aux_weight:g} x aux + 0.1 x mtp_ce: {same}; {card}")
+    if not all(math.isfinite(v) for v in vals.values()):
+        failures.append(f"mla (e): a loss term is not finite: {vals}")
+    if not same:
+        failures.append(f"mla (e): loss {vals['loss']} is not ce + "
+                        f"{cfg.router_aux_weight} aux + 0.1 mtp_ce "
+                        f"({float(total)})")
+    return vals
+
+
+def check_f8_cast(torch, card: str, failures: list) -> None:
+    """(f) common.cache_cast to float8_e4m3fn on the card against the CPU,
+    bit for bit, from float32 and from bfloat16 (the same source bits on
+    both sides)."""
+    from repro_torch.common import cache_cast
+    vals = torch.tensor(F8_EDGES + tuple(-v for v in F8_EDGES))
+    for src in (torch.float32, torch.bfloat16):
+        v = vals.to(src)
+        cpu = cache_cast(v, torch.float8_e4m3fn).view(torch.uint8)
+        dev = cache_cast(v.to("cuda"), torch.float8_e4m3fn).view(torch.uint8).cpu()
+        same = bool(torch.equal(cpu, dev))
+        log(f"[mla] (f) float8 cache cast from {str(src)[6:]}: card "
+            f"{dev.tolist()}, CPU {cpu.tolist()}: equal {same}; {card}")
+        if not same:
+            failures.append(f"mla (f): the float8 cast from {src} differs "
+                            f"between the card and the CPU")
+
+
+def run_lm_mla(torch, args, card: str, failures: list) -> dict:
+    """deepseek-v3-671b at full width cut to MLA_LAYERS layers plus MTP:
+    (a) 4 prompts of 4000 tokens and 32 greedy steps through
+    launch/serve.py's generate (the main path), prefill and decode timed
+    beside the time to read what decode reads; (b) its kernel launches,
+    which must be 0 (MLA reaches no kernel in either package); then
+    (c)-(f) (check_mla_attention, check_mla_decode, check_mla_mtp,
+    check_f8_cast)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.common import param_bytes, param_count
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import build_model
+
+    t_start = time.perf_counter()
+    full = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MLA_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = model.init_params(args.seed)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    parts = {k: param_bytes(params[k]) for k in
+             ("embed", "dense_layers", "moe_layers", "lm_head", "mtp")}
+    read = parts["lm_head"] + parts["dense_layers"] + parts["moe_layers"]
+    floor = read / HBM_BYTES_PER_S * 1e3
+    log(f"[mla] {MLA_ARCH}: {MLA_LAYERS} of {full.num_layers} layers "
+        f"({cfg.first_dense_layers} dense at d_ff {cfg.dense_d_ff}, "
+        f"{MLA_LAYERS - cfg.first_dense_layers} MoE: {cfg.num_experts} "
+        f"experts top-{cfg.top_k} + {cfg.num_shared_experts} shared, moe_d_ff "
+        f"{cfg.moe_d_ff}) + MTP {cfg.mtp_depth}; d {cfg.d_model}, {cfg.num_heads} "
+        f"heads, q_lora {cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}, dn "
+        f"{cfg.qk_nope_head_dim}, dr {cfg.qk_rope_head_dim}, dv "
+        f"{cfg.v_head_dim}, vocab {cfg.vocab_size}, {cfg.param_dtype}; "
+        f"{param_count(params) / 1e9:.3f} B params, {param_bytes(params)} "
+        f"bytes (" + ", ".join(f"{k} {v}" for k, v in parts.items())
+        + f"); init_params {t_init:.2f} s; prompts {LM_BATCH} x {LM_PROMPT}, "
+        f"{LM_DECODE} decode steps")
+    rng = np.random.RandomState(args.seed)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)),
+                           dtype=torch.int32, device="cuda")
+    batch = {"tokens": toks}
+
+    # (a), (b) the main path: counts to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    ids, t_first, t_decode = generate(model, params, toks, LM_DECODE)
+    launches = dict(ops.launches)
+    serve_peak = torch.cuda.max_memory_allocated()
+    log(f"[mla] (b) main path (launch/serve.py generate): kernel launches "
+        f"{launches} (want 0: MLA reaches no kernel); first prefill "
+        f"{t_first * 1e3:.3f} ms, decode {t_decode * 1e3:.3f} ms/token; "
+        f"peak memory {serve_peak} bytes ({serve_peak / 2 ** 30:.2f} GiB); "
+        f"{card}")
+    if any(launches.values()):
+        failures.append(f"mla (b): kernel launches {launches}, want none")
+    if not (ids.shape == (LM_BATCH, LM_DECODE) and int(ids.min()) >= 0
+            and int(ids.max()) < cfg.vocab_size):
+        failures.append(f"mla (a): generated ids {tuple(ids.shape)} out of "
+                        f"range")
+
+    # prefill time (median of 3 after a warm-up that records layer 0's
+    # MLA inputs)
+    x = first_call_args(attn_lib, "mla_prefill_attention",
+                        lambda: model.prefill(params, batch))
+    t_prefill = wall_ms(torch, lambda: model.prefill(params, batch), runs=3)
+    tok_s = LM_BATCH * LM_PROMPT / (t_prefill / 1e3)
+    logits, cache = model.prefill(params, batch)
+    if not bool(torch.isfinite(logits).all()):
+        failures.append("mla (a): prefill logits are not finite")
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    profile_query(torch, lambda: model.prefill(params, batch),
+                  f"{MLA_ARCH} prefill", reps=1)
+    profile_query(torch, lambda: model.decode_step(params, cache, tok),
+                  f"{MLA_ARCH} decode step")
+    del cache, logits
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[mla] (a) prefill {LM_BATCH}x{LM_PROMPT}: {t_prefill:.3f} ms "
+        f"(median of 3), {tok_s:.1f} tokens/s; decode {t_decode * 1e3:.3f} "
+        f"ms/token ({LM_BATCH} sequences; reading what decode reads, lm_head, "
+        f"the dense layers and the MoE layer's {cfg.num_experts} experts, "
+        f"{read} bytes, takes {floor:.3f} ms at 3.35 TB/s; MTP's "
+        f"{parts['mtp']} bytes are not read); peak memory {serve_peak} bytes "
+        f"({serve_peak / 2 ** 30:.2f} GiB) serving, {peak} "
+        f"({peak / 2 ** 30:.2f} GiB) with the timing and profiles; {card}")
+
+    attn = check_mla_attention(torch, attn_lib, x, card, failures)
+    del x
+    cons = check_mla_decode(torch, model, params, rng, card, failures)
+    mtp = check_mla_mtp(torch, model, params, rng, card, failures)
+    check_f8_cast(torch, card, failures)
+    peak = torch.cuda.max_memory_allocated()
+    del params, model
+    torch.cuda.empty_cache()
+    log(f"[mla] phase peak memory {peak} bytes ({peak / 2 ** 30:.2f} GiB); "
+        f"{time.perf_counter() - t_start:.1f} s; {card}")
+    return dict(launches=launches, prefill_ms=t_prefill, tokens_per_s=tok_s,
+                decode_ms=t_decode * 1e3, decode_floor_ms=floor,
+                serve_peak=serve_peak, peak=peak, attention=attn,
+                consistency=cons, mtp=mtp)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: LM training at full width
 # ---------------------------------------------------------------------------
 
 # yi-6b at full width cut to 16 of its 32 layers: with float32 moments all
@@ -3419,6 +3725,18 @@ def main() -> int:
     family_peak = max((f["peak"] for f in families.values()), default=0)
     t_phase = phase_done("LM families", t_phase)
 
+    # deepseek-v3's MLA at full width, after the families' weights are freed
+    torch.cuda.empty_cache()
+    mla_peak = 0
+    try:
+        mla = run_lm_mla(torch, args, card, failures)
+        mla_peak = mla["peak"]
+        if k is not None:
+            k["family_launches"][MLA_ARCH] = mla["launches"]["flash_attention"]
+    except Exception:
+        failures.append(f"phase LM MLA:\n{traceback.format_exc()}")
+    t_phase = phase_done("LM MLA (deepseek-v3-671b)", t_phase)
+
     # training at full width, after serving's weights are freed
     torch.cuda.empty_cache()
     try:
@@ -3448,7 +3766,8 @@ def main() -> int:
     log(f"memory: max_memory_allocated {peak} bytes "
         f"({peak / 2 ** 30:.2f} GiB) over the main path; {lm_peak} bytes "
         f"({lm_peak / 2 ** 30:.2f} GiB) over LM serving; {family_peak} bytes "
-        f"({family_peak / 2 ** 30:.2f} GiB) over the LM families; {train_peak} bytes "
+        f"({family_peak / 2 ** 30:.2f} GiB) over the LM families; {mla_peak} "
+        f"bytes ({mla_peak / 2 ** 30:.2f} GiB) over LM MLA; {train_peak} bytes "
         f"({train_peak / 2 ** 30:.2f} GiB) over LM training")
     if failures:
         for f in failures:

@@ -21,6 +21,25 @@ def dtype_of(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
+# float8_e4m3fn's largest finite value is 448 and it has no infinity: the
+# JAX package's cast rounds |x| > 464 (past the midpoint to 480) to NaN
+F8_OVERFLOW = 464.0
+
+
+def cache_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`x` cast to a KV cache's `dtype` as the JAX package's ``astype``
+    casts it. For float8_e4m3fn torch saturates an overflow to ±448 where
+    JAX gives NaN: here |x| > 464, ±inf and NaN become NaN with x's sign
+    bit, and every other value takes torch's round-to-nearest-even, which
+    is JAX's (exactly 464 rounds to 448). Other dtypes cast as ``to``."""
+    if dtype != torch.float8_e4m3fn:
+        return x.to(dtype)
+    nan = x.isnan() | (x.abs() > F8_OVERFLOW)
+    bits = torch.where(nan, 0, x).to(dtype).view(torch.uint8)
+    nan_bits = torch.where(torch.signbit(x), 0xFF, 0x7F).to(torch.uint8)
+    return torch.where(nan, nan_bits, bits).view(dtype)
+
+
 def tree_paths(tree: Any, prefix: tuple = ()) -> Iterator[tuple[tuple, Any]]:
     """Yield (path, leaf) for a nested dict/list tree of leaves."""
     if isinstance(tree, dict):

@@ -5,6 +5,6 @@ from repro_torch.configs.base import (  # noqa: F401
     reduce_for_smoke, runnable_shapes,
 )
 from repro_torch.configs import (  # noqa: F401
-    dbrx_132b, deepseek_7b, musicgen_large, pixtral_12b, qwen3_8b, yi_34b,
-    yi_6b,
+    dbrx_132b, deepseek_7b, deepseek_v3_671b, musicgen_large, pixtral_12b,
+    qwen3_8b, yi_34b, yi_6b,
 )

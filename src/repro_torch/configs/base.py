@@ -195,7 +195,7 @@ def runnable_shapes(cfg: ModelConfig) -> list[ShapeConfig]:
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 
 # architectures of the JAX package whose model families are not ported yet
-NOT_PORTED = ("deepseek-v3-671b", "recurrentgemma-9b", "xlstm-125m")
+NOT_PORTED = ("recurrentgemma-9b", "xlstm-125m")
 
 
 def register(name: str):

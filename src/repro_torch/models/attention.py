@@ -1,15 +1,21 @@
-"""Attention: the naive reference, the one-step decode, and the dispatch of
-prefill attention to ``kernels.ops.flash_attention``.
+"""Attention: the naive reference, the one-step decode, the dispatch of
+prefill attention to ``kernels.ops.flash_attention``, and MLA
+(deepseek-v3's multi-head latent attention).
 
-All functions take q: (b, sq, h, e), k: (b, skv, g, e), v: (b, skv, g, ev)
-with h = g * rep (GQA). Softmax statistics are float32. The JAX package's
-blockwise, triangle, local (sliding-window) and MLA variants belong to the
-model families that need them and are not here.
+The GQA functions take q: (b, sq, h, e), k: (b, skv, g, e), v: (b, skv,
+g, ev) with h = g * rep. MLA's take the latent kv instead: ckv (b, s, c)
+and the roped k_pe (b, s, dr) shared by every head, with the up-projections
+kv_b_k (c, h, dn) and kv_b_v (c, h, dv). Softmax statistics are float32.
+MLA runs in plain PyTorch in both packages: its head dims (dn + dr for q
+and k, dv for v) differ, and the flash kernel takes equal ones. The JAX
+package's blockwise, triangle and local (sliding-window) variants belong
+to the model families that need them and are not here.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.common import ceil_div
 from repro_torch.kernels import ops
 
 NEG = -1e30
@@ -60,3 +66,108 @@ def attention(q, k, v, *, impl="kernel", causal=True, scale=None):
     """Prefill attention through ``ops.flash_attention``: the CUDA kernel
     for CUDA tensors under ``impl="kernel"``, else its plain version."""
     return ops.flash_attention(q, k, v, causal=causal, scale=scale, impl=impl)
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, deepseek-v3)
+# ---------------------------------------------------------------------------
+
+
+def _flash_q_block(qb, q_start, producer, nk, block_kv, ev, scale):
+    """Online softmax over kv blocks for one q block, the JAX package's
+    ``_flash_q_block`` with a kv producer and one kv head a query head.
+
+    qb: (b, Bq, h, e), its rows at positions q_start...; producer(j) ->
+    (kj (b, Bk, h, e), vj (b, Bk, h, ev)), kv block j (positions
+    j * block_kv...) made on the fly, for j < nk. Returns o (b, h, Bq, ev)
+    float32, normalised."""
+    b, bq, h, _ = qb.shape
+    q_pos = q_start + torch.arange(bq, device=qb.device)
+    qf = qb.float()
+    o = torch.zeros((b, h, bq, ev), dtype=torch.float32, device=qb.device)
+    m = torch.full((b, h, bq), NEG, dtype=torch.float32, device=qb.device)
+    l = torch.zeros((b, h, bq), dtype=torch.float32, device=qb.device)
+    for j in range(nk):
+        kj, vj = producer(j)
+        k_pos = j * block_kv + torch.arange(kj.shape[1], device=qb.device)
+        msk = k_pos[None, :] <= q_pos[:, None]
+        s = torch.einsum("bqhe,bkhe->bhqk", qf, kj.float()) * scale
+        s = s.masked_fill(~msk, NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None]) * msk
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        # p rounded to the value dtype before p.v, the product in float32
+        pv = torch.einsum("bhqk,bkhf->bhqf", p.to(vj.dtype).float(),
+                          vj.float())
+        o = o * alpha[..., None] + pv
+        m = m_new
+    return o / torch.clamp(l, min=1e-30)[..., None]
+
+
+def mla_prefill_attention(q, ckv, k_pe, kv_b_k, kv_b_v, *, scale,
+                          block_q=512, block_kv=1024):
+    """Blockwise causal MLA attention that up-projects the latent kv one
+    block at a time: the per-head K/V of the whole sequence, (b, s, h,
+    dn + dr) and (b, s, h, dv), is never held. q: (b, s, h, dn + dr);
+    ckv: (b, s, c); k_pe: (b, s, dr). Returns (b, s, h, dv) in ckv's dtype.
+
+    The JAX package pads q and the latent to whole blocks, visits every
+    (q block, kv block) pair and masks. Here the last blocks are short
+    instead (a masked padding position adds exactly 0), and a kv block
+    wholly above a q block's diagonal is skipped: it is masked for every
+    row, so its scores are NEG, m stays, alpha = exp(0) = 1 and p = 0, and
+    it adds exactly 0 to l and o. Neither changes a bit."""
+    b, sq, h, _ = q.shape
+    dv = kv_b_v.shape[-1]
+    skv = ckv.shape[1]
+    block_q, block_kv = min(block_q, sq), min(block_kv, skv)
+
+    def producer(j):
+        c_j = ckv[:, j * block_kv:(j + 1) * block_kv]
+        pe_j = k_pe[:, j * block_kv:(j + 1) * block_kv]
+        kn = torch.einsum("bkc,chn->bkhn", c_j, kv_b_k)
+        vv = torch.einsum("bkc,chv->bkhv", c_j, kv_b_v)
+        kk = torch.cat([kn, pe_j[:, :, None, :].expand(
+            *kn.shape[:3], pe_j.shape[-1])], dim=-1)
+        return kk, vv
+
+    out = torch.empty((b, sq, h, dv), dtype=ckv.dtype, device=q.device)
+    for q_start in range(0, sq, block_q):
+        qb = q[:, q_start:q_start + block_q]
+        # the kv blocks that start at or before the block's last row
+        nk = min(ceil_div(skv, block_kv),
+                 (q_start + qb.shape[1] - 1) // block_kv + 1)
+        o = _flash_q_block(qb, q_start, producer, nk, block_kv, dv, scale)
+        out[:, q_start:q_start + block_q] = o.transpose(1, 2).to(ckv.dtype)
+    return out
+
+
+def mla_naive_attention(q, ckv, k_pe, kv_b_k, kv_b_v, *, scale):
+    """The JAX package's ``attention_impl="naive"`` MLA prefill, the plain
+    yardstick of ``mla_prefill_attention``: the whole latent up-projected
+    to per-head K/V, then ``naive_attention`` with the explicit scale."""
+    dn = kv_b_k.shape[-1]
+    kvup = torch.einsum("bsk,khe->bshe", ckv, torch.cat([kv_b_k, kv_b_v], -1))
+    k_nope, v = kvup[..., :dn], kvup[..., dn:]
+    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(
+        *k_nope.shape[:3], k_pe.shape[-1])], dim=-1)
+    return naive_attention(q, k, v, causal=True, scale=scale)
+
+
+def mla_absorbed_decode(q_nope, q_pe, ckv_cache, kpe_cache, kv_b_k, kv_b_v,
+                        cur_len, *, scale):
+    """Matrix-absorbed MLA decode: the scores are taken against the latent
+    cache directly, never against per-head K/V.
+
+    q_nope: (b, h, dn), q_pe: (b, h, dr); ckv_cache: (b, S, c); kpe_cache:
+    (b, S, dr); cur_len: 0-dim int tensor, the valid positions (this step's
+    included), compared on the device. Returns (b, h, dv)."""
+    qc = torch.einsum("bhn,chn->bhc", q_nope, kv_b_k)          # absorb W_UK
+    s = torch.einsum("bhc,bsc->bhs", qc.float(), ckv_cache.float())
+    s = s + torch.einsum("bhr,bsr->bhs", q_pe.float(), kpe_cache.float())
+    s = s * scale
+    valid = torch.arange(ckv_cache.shape[1], device=s.device) < cur_len
+    p = torch.softmax(s.masked_fill(~valid, NEG), dim=-1)
+    oc = torch.einsum("bhs,bsc->bhc", p.to(ckv_cache.dtype), ckv_cache)
+    return torch.einsum("bhc,chv->bhv", oc, kv_b_v)            # absorb W_UV

@@ -4,8 +4,10 @@ On one device the JAX package's ``mapsin`` lookup (the vocab-sharded
 table answering token-id GETs) is the dense gather, so ``impl="mapsin"``
 maps to it here; the sharded form belongs to the distributed slice.
 
-Unlike ``jnp.take``, which clamps an out-of-range id, indexing raises on
-one (a device-side assert on a card): ids come from the tokenizer's range.
+An id >= the vocabulary differs: the JAX package's ``jnp.take`` fills its
+row with NaN, where indexing raises ``IndexError`` (a device-side assert
+on a card); ids come from the tokenizer's range. Both wrap -1 to the last
+row.
 """
 from __future__ import annotations
 

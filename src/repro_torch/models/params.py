@@ -103,6 +103,8 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
         lambda _, a: torch.from_numpy(np.array(a)).to(device), tree)
 
 
-# a decode cache carries across the same way: (k, v) stacked per group and
-# a 0-dim int32 cur_len
+# a decode cache carries across the same way: each group's pair stacked
+# over its layers, (k, v) or MLA's (ckv, k_pe), and a 0-dim int32 cur_len;
+# numpy has no float8 either: pass a float8 cache as float32 and cast back
+# (exact, every float8 value is a float32 one)
 cache_from_numpy = params_from_numpy

@@ -1,19 +1,21 @@
-"""TransformerLM: the dense, MoE, vlm and audio decoders with grouped-query
-attention (yi-6b/34b, deepseek-7b, qwen3-8b's qk-norm, dbrx, pixtral's
-backbone, musicgen's backbone).
+"""TransformerLM: the dense, MoE, vlm and audio decoders (yi-6b/34b,
+deepseek-7b, qwen3-8b's qk-norm, dbrx, pixtral's backbone, musicgen's
+backbone) with grouped-query attention, and deepseek-v3 with multi-head
+latent attention (MLA) and multi-token prediction (MTP).
 
 The JAX package's ``TransformerLM`` with the same parameter tree (stacked
 per-layer tensors under ``dense_layers`` and ``moe_layers``, JAX's weight
 layouts and einsum strings), the same training loss (``loss``: the blocks
 under the config's remat policy, the chunked cross-entropy, the router's
-auxiliary loss) and the same serving entry points: ``prefill`` fills a KV
-cache with a 64-position decode margin, ``decode_step`` extends it by one
-token. The JAX ``lax.scan`` over each group's stacked layers is a Python
-loop over the layer index. The vlm family prepends projected patch
-embeddings (a stub ViT's output) to the text; the audio family sums one
-embedding a codebook and predicts every codebook. MLA, multi-token
-prediction, sliding-window attention and the ssm/hybrid families belong
-to later slices and raise ``NotImplementedError``.
+auxiliary loss, with MTP 0.1 x the t+2 cross-entropy) and the same
+serving entry points: ``prefill`` fills a KV cache with a 64-position
+decode margin, ``decode_step`` extends it by one token. A GQA layer caches
+(k, v), an MLA layer its latent ckv and roped k_pe. The JAX ``lax.scan``
+over each group's stacked layers is a Python loop over the layer index.
+The vlm family prepends projected patch embeddings (a stub ViT's output)
+to the text; the audio family sums one embedding a codebook and predicts
+every codebook. Sliding-window attention and the ssm/hybrid families
+belong to later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,8 +27,8 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.common import (dtype_of, resolve_device, tree_map_with_path,
-                                tree_paths)
+from repro_torch.common import (cache_cast, dtype_of, resolve_device,
+                                tree_map_with_path, tree_paths)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import embedding as embed_lib
@@ -47,6 +49,20 @@ def _save_dots_without_batch_dims(ctx, op, *args, **kwargs):
             op == torch.ops.aten.bmm.default and args[0].shape[0] == 1):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _cache_write(buf, cur_len, t):
+    """buf[:, min(cur_len, S - 1)] = t in buf's dtype (`cache_cast`): the
+    index JAX's ``dynamic_update_slice`` clamps to, written by
+    ``index_copy_`` at the device-side index, so decode never waits for the
+    host. buf: one layer's (b, S, ...) cache view; t: (b, 1, ...). A float8
+    cache is written through its bytes (``index_copy_`` has no float8 CPU
+    kernel)."""
+    idx = torch.clamp(cur_len, max=buf.shape[1] - 1).reshape(1).long()
+    t = cache_cast(t, buf.dtype)
+    if buf.dtype == torch.float8_e4m3fn:
+        buf, t = buf.view(torch.uint8), t.view(torch.uint8)
+    buf.index_copy_(1, idx, t)
 
 
 def _remat(fn, policy: str):
@@ -74,13 +90,12 @@ class TransformerLM(nn.Module):
         unported = [name for name, on in (
             (f"family {cfg.family!r}",
              cfg.family not in ("dense", "moe", "vlm", "audio")),
-            ("MLA", cfg.use_mla),
-            ("multi-token prediction", bool(cfg.mtp_depth)),
             ("sliding-window attention", bool(cfg.window_size))) if on]
         if unported:
             raise NotImplementedError(
                 f"{cfg.name}: {', '.join(unported)} is not ported yet; this "
-                f"package runs the GQA decoders (dense, MoE, vlm, audio)")
+                f"package runs the dense, MoE, vlm and audio decoders with "
+                f"GQA or MLA")
         self.cfg = cfg
         self.device = resolve_device(device, "TransformerLM")
         self.adt = dtype_of(cfg.activation_dtype)
@@ -92,6 +107,19 @@ class TransformerLM(nn.Module):
         c = self.cfg
         d, h, g, e = c.d_model, c.num_heads, c.num_kv_heads, c.resolved_head_dim
         pd = c.param_dtype
+        if c.use_mla:
+            dn, dr, dv = c.qk_nope_head_dim, c.qk_rope_head_dim, c.v_head_dim
+            return {
+                "norm": pdef((d,), ("embed",), pd, "ones"),
+                "q_a": pdef((d, c.q_lora_rank), ("fsdp", "q_lora"), pd),
+                "q_norm": pdef((c.q_lora_rank,), ("q_lora",), pd, "ones"),
+                "q_b": pdef((c.q_lora_rank, h, dn + dr), ("q_lora", "heads", None), pd),
+                "kv_a": pdef((d, c.kv_lora_rank + dr), ("fsdp", None), pd),
+                "kv_norm": pdef((c.kv_lora_rank,), ("kv_lora",), pd, "ones"),
+                "kv_b_k": pdef((c.kv_lora_rank, h, dn), ("kv_lora", "heads", None), pd),
+                "kv_b_v": pdef((c.kv_lora_rank, h, dv), ("kv_lora", "heads", None), pd),
+                "wo": pdef((h, dv, d), ("heads", None, "fsdp"), pd),
+            }
         out = {
             "norm": pdef((d,), ("embed",), pd, "ones"),
             "wq": pdef((d, h, e), ("fsdp", "heads", "head_dim"), pd),
@@ -162,6 +190,13 @@ class TransformerLM(nn.Module):
             defs["lm_head"] = pdef((c.num_codebooks, d, v), ("stack", "embed", "vocab"), pd)
         elif not c.tie_embeddings:
             defs["lm_head"] = pdef((d, v), ("embed", "vocab"), pd)
+        if c.mtp_depth:
+            defs["mtp"] = {
+                "norm1": pdef((d,), ("embed",), pd, "ones"),
+                "norm2": pdef((d,), ("embed",), pd, "ones"),
+                "proj": pdef((2 * d, d), ("fsdp", "embed"), pd),
+                "block": self._block_defs(bool(c.num_experts)),
+            }
         return defs
 
     def init_params(self, seed: int = 0) -> dict[str, Any]:
@@ -175,9 +210,7 @@ class TransformerLM(nn.Module):
         """mode "prefill": attention over the prompt through the flash
         kernel, returning this layer's (k, v). mode "decode": writes the new
         (k, v) into `cache` (this layer's (b, S, g, e) views of the stacked
-        cache) in place at min(cur_len, S - 1), the index that JAX's
-        ``dynamic_update_slice`` clamps to, with ``index_copy_`` on the
-        device-side index, and attends over the cache."""
+        cache) in place (`_cache_write`) and attends over the cache."""
         c = self.cfg
         eps = c.norm_eps
         xs = rms_norm(x, p["norm"], eps)
@@ -192,9 +225,8 @@ class TransformerLM(nn.Module):
         new_kv = None
         if mode == "decode":
             kc, vc = cache
-            idx = torch.clamp(cur_len, max=kc.shape[1] - 1).reshape(1).long()
-            kc.index_copy_(1, idx, k.to(kc.dtype))
-            vc.index_copy_(1, idx, v.to(vc.dtype))
+            _cache_write(kc, cur_len, k)
+            _cache_write(vc, cur_len, v)
             o = attn_lib.decode_attention(q, kc.to(self.adt), vc.to(self.adt),
                                           cur_len + 1)
         else:
@@ -203,6 +235,48 @@ class TransformerLM(nn.Module):
             if mode == "prefill":
                 new_kv = (k, v)
         out = torch.einsum("bshe,hed->bsd", o, p["wo"])
+        return x + out, new_kv
+
+    def _mla_attention(self, p, x, positions, *, mode, cache=None,
+                       cur_len=None):
+        """Multi-head latent attention. q comes through the q_lora
+        bottleneck; keys and values through the kv_lora latent ckv, beside
+        a roped k_pe of qk_rope_head_dim that every head shares; the scale
+        is (dn + dr) ** -0.5. mode "prefill" (and "train"): blockwise
+        attention up-projecting the latent one kv block at a time,
+        returning this layer's (ckv, k_pe). mode "decode": writes them into
+        `cache` ((b, S, c) and (b, S, dr) views) as ``_gqa_attention``
+        does and attends in the latent space (the absorbed decode)."""
+        c = self.cfg
+        eps = c.norm_eps
+        dn, dr = c.qk_nope_head_dim, c.qk_rope_head_dim
+        xs = rms_norm(x, p["norm"], eps)
+        cq = rms_norm(torch.einsum("bsd,dq->bsq", xs, p["q_a"]), p["q_norm"], eps)
+        q = torch.einsum("bsq,qhe->bshe", cq, p["q_b"])
+        q_nope, q_pe = q[..., :dn], q[..., dn:]
+        q_pe = apply_rope(q_pe, positions, c.rope_theta)
+        kv = torch.einsum("bsd,dk->bsk", xs, p["kv_a"])
+        ckv, k_pe = kv[..., :c.kv_lora_rank], kv[..., c.kv_lora_rank:]
+        ckv = rms_norm(ckv, p["kv_norm"], eps)
+        k_pe = apply_rope(k_pe[:, :, None, :], positions, c.rope_theta)[:, :, 0]
+        scale = (dn + dr) ** -0.5
+        new_kv = None
+        if mode == "decode":
+            ckv_c, kpe_c = cache
+            _cache_write(ckv_c, cur_len, ckv)
+            _cache_write(kpe_c, cur_len, k_pe)
+            o = attn_lib.mla_absorbed_decode(
+                q_nope[:, 0], q_pe[:, 0], ckv_c.to(self.adt),
+                kpe_c.to(self.adt), p["kv_b_k"], p["kv_b_v"], cur_len + 1,
+                scale=scale)[:, None]                     # (b, 1, h, dv)
+        else:
+            o = attn_lib.mla_prefill_attention(
+                torch.cat([q_nope, q_pe], dim=-1), ckv, k_pe, p["kv_b_k"],
+                p["kv_b_v"], scale=scale, block_q=c.attn_block_q,
+                block_kv=c.attn_block_kv)
+            if mode == "prefill":
+                new_kv = (ckv, k_pe)
+        out = torch.einsum("bshv,hvd->bsd", o, p["wo"])
         return x + out, new_kv
 
     def _ffn(self, p, x, moe: bool):
@@ -221,8 +295,9 @@ class TransformerLM(nn.Module):
 
     def _block(self, p, x, positions, moe: bool, *, mode, cache=None,
                cur_len=None):
-        x, new_kv = self._gqa_attention(p["attn"], x, positions, mode=mode,
-                                        cache=cache, cur_len=cur_len)
+        mix = self._mla_attention if self.cfg.use_mla else self._gqa_attention
+        x, new_kv = mix(p["attn"], x, positions, mode=mode, cache=cache,
+                        cur_len=cur_len)
         x, aux = self._ffn(p["mlp"], x, moe)
         return x, new_kv, aux
 
@@ -286,10 +361,11 @@ class TransformerLM(nn.Module):
     def loss(self, params, batch):
         """batch: tokens (b, s[, K]), labels (b, s[, K]) with -1 at masked
         positions, and patch_embeds (b, num_patches, VIT_DIM) for the vlm
-        family. Returns (loss, {"ce", "aux"}): the mean cross-entropy over
-        unmasked positions (the text positions for vlm, the mean over the
-        codebooks for audio) plus router_aux_weight * aux, the router
-        losses summed over the MoE layers (0 without experts)."""
+        family. Returns (loss, {"ce", "aux"[, "mtp_ce"]}): the mean
+        cross-entropy over unmasked positions (the text positions for vlm,
+        the mean over the codebooks for audio) plus router_aux_weight * aux,
+        the router losses summed over the MoE layers (0 without experts),
+        plus 0.1 * mtp_ce with multi-token prediction (`_mtp_loss`)."""
         c = self.cfg
         labels = batch["labels"]
         x, n_prefix = self._embed_inputs(params, batch)
@@ -313,7 +389,32 @@ class TransformerLM(nn.Module):
             ce = tot / c.num_codebooks
         else:
             ce = softmax_xent_chunked(h, self._head_w(params), labels, mask)
-        return ce + c.router_aux_weight * aux, {"ce": ce, "aux": aux}
+        metrics = {"ce": ce, "aux": aux}
+        loss = ce + c.router_aux_weight * aux
+        if c.mtp_depth:
+            mtp_ce = self._mtp_loss(params, x, batch["tokens"], labels)
+            metrics["mtp_ce"] = mtp_ce
+            loss = loss + 0.1 * mtp_ce
+        return loss, metrics
+
+    def _mtp_loss(self, params, hidden, tokens, labels):
+        """DeepSeek-V3 multi-token prediction (depth 1): predict token t+2
+        from the trunk's h_t (before ``final_norm``) joined with the
+        embedding of token t+1, through one more block (not under remat,
+        its router loss dropped), ``final_norm`` and the shared head."""
+        c = self.cfg
+        p = params["mtp"]
+        h = rms_norm(hidden[:, :-1], p["norm1"], c.norm_eps)
+        e = rms_norm(self._embed_tokens(params, tokens[:, 1:]), p["norm2"],
+                     c.norm_eps)
+        x = torch.einsum("bsd,dk->bsk", torch.cat([h, e], dim=-1), p["proj"])
+        positions = torch.arange(x.shape[1], device=x.device)[None]
+        x, _, _ = self._block(p["block"], x, positions, bool(c.num_experts),
+                              mode="train")
+        hh = rms_norm(x, params["final_norm"], c.norm_eps)
+        lab = labels[:, 1:]      # labels are the t+1 targets: shift once more
+        return softmax_xent_chunked(hh, self._head_w(params), lab,
+                                    (lab >= 0).float())
 
     # ------------------------------------------------------------------
     # Serving
@@ -321,9 +422,13 @@ class TransformerLM(nn.Module):
     def cache_defs(self, batch: int, seq_len: int) -> dict[str, Any]:
         c = self.cfg
         dt = c.kv_cache_dtype
-        g, e = c.num_kv_heads, c.resolved_head_dim
-        per = (pdef((batch, seq_len, g, e), ("batch", None, "kv_heads", "head_dim"), dt, "zeros"),
-               pdef((batch, seq_len, g, e), ("batch", None, "kv_heads", "head_dim"), dt, "zeros"))
+        if c.use_mla:
+            per = (pdef((batch, seq_len, c.kv_lora_rank), ("batch", "seq_kv", "kv_lora"), dt, "zeros"),
+                   pdef((batch, seq_len, c.qk_rope_head_dim), ("batch", "seq_kv", "rope"), dt, "zeros"))
+        else:
+            g, e = c.num_kv_heads, c.resolved_head_dim
+            per = (pdef((batch, seq_len, g, e), ("batch", None, "kv_heads", "head_dim"), dt, "zeros"),
+                   pdef((batch, seq_len, g, e), ("batch", None, "kv_heads", "head_dim"), dt, "zeros"))
         defs: dict[str, Any] = {group: stack_defs(per, n) for group, n
                                 in self._group_sizes().items() if n}
         defs["cur_len"] = pdef((), (), "int32", "zeros")
@@ -334,21 +439,22 @@ class TransformerLM(nn.Module):
         """batch: {"tokens": (b, s) int, or (b, s, K) for audio} and, for
         vlm, "patch_embeds" (b, num_patches, VIT_DIM). Returns (logits of
         the last position, (b, vocab) or (b, K, vocab) for audio, cache):
-        the cache holds each group's (k, v) stacked over its layers,
-        (L, b, n + margin, g, e) in ``kv_cache_dtype``, n the prompt's
-        positions (patches included; the margin is decode headroom: without
-        it the first generated token's kv would overwrite the last prompt
+        the cache holds each group's pair stacked over its layers in
+        ``kv_cache_dtype`` (`cache_cast`): (k, v), each (L, b, n + margin,
+        g, e), or MLA's (ckv, k_pe), (L, b, n + margin, kv_lora_rank) and
+        (L, b, n + margin, qk_rope_head_dim); n is the prompt's positions
+        (patches included; the margin is decode headroom: without it the
+        first generated token's kv would overwrite the last prompt
         position), and cur_len = n as a 0-dim int32 tensor."""
         x, _ = self._embed_inputs(params, batch)
         b, seq = x.shape[:2]
         positions = torch.arange(seq, device=x.device)[None]
         cache = init_params(self.cache_defs(b, seq + margin), 0, x.device)
         for group, moe in self._groups(params):
-            kc, vc = cache[group]
             for i, p in self._layers(params, group):
-                x, (k, v), _ = self._block(p, x, positions, moe, mode="prefill")
-                kc[i, :, :seq] = k
-                vc[i, :, :seq] = v
+                x, kv, _ = self._block(p, x, positions, moe, mode="prefill")
+                for buf, t in zip(cache[group], kv):
+                    buf[i, :, :seq] = cache_cast(t, buf.dtype)
         h = rms_norm(x[:, -1:], params["final_norm"], self.cfg.norm_eps)
         cache["cur_len"].fill_(seq)
         return self._last_logits(params, h), cache
@@ -364,10 +470,11 @@ class TransformerLM(nn.Module):
         positions = cur.reshape(1, 1)
         new_cache: dict[str, Any] = {"cur_len": cur + 1}
         for group, moe in self._groups(params):
-            kc, vc = cache[group]
+            pair = cache[group]
             for i, p in self._layers(params, group):
                 x, _, _ = self._block(p, x, positions, moe, mode="decode",
-                                      cache=(kc[i], vc[i]), cur_len=cur)
-            new_cache[group] = (kc, vc)
+                                      cache=tuple(t[i] for t in pair),
+                                      cur_len=cur)
+            new_cache[group] = pair
         h = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return self._last_logits(params, h), new_cache

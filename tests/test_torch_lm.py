@@ -27,6 +27,7 @@ from repro.common import tree_paths as j_tree_paths
 from repro.configs import get_config as j_get_config
 from repro.configs import reduce_for_smoke as j_reduce
 from repro.models import build_model as j_build_model
+from repro.models import embedding as j_embedding
 from repro.models import layers as jlayers
 from repro.models.params import bytes_of as j_bytes_of
 from repro.models.params import init_tree
@@ -35,7 +36,7 @@ from repro_torch.common import param_count, tree_paths
 from repro_torch.configs import get_config, list_archs, reduce_for_smoke
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
-from repro_torch.models import build_model, layers
+from repro_torch.models import build_model, embedding, layers
 from repro_torch.models.params import (bytes_of, cache_from_numpy, init_params,
                                        params_from_numpy)
 
@@ -199,13 +200,32 @@ def test_entry_points_default_to_cuda(lm):
 
 
 def test_unported_archs_raise():
-    assert list_archs() == ["dbrx-132b", "deepseek-7b", "musicgen-large",
-                            "pixtral-12b", "qwen3-8b", "yi-34b", "yi-6b"]
+    assert list_archs() == ["dbrx-132b", "deepseek-7b", "deepseek-v3-671b",
+                            "musicgen-large", "pixtral-12b", "qwen3-8b",
+                            "yi-34b", "yi-6b"]
     with pytest.raises(KeyError, match="not ported"):
-        get_config("deepseek-v3-671b")
-    with pytest.raises(NotImplementedError, match="MLA"):
-        build_model(dataclasses.replace(get_config("yi-6b"), use_mla=True),
+        get_config("recurrentgemma-9b")
+    with pytest.raises(NotImplementedError, match="sliding-window"):
+        build_model(dataclasses.replace(get_config("yi-6b"), window_size=32),
                     "cpu")
+
+
+def test_out_of_range_token_ids():
+    """The reference's ``jnp.take`` fills a NaN row for an id >= vocab;
+    the port's indexing raises IndexError (a device-side assert on a card).
+    Both wrap -1 to the last row."""
+    table = np.arange(12, dtype=np.float32).reshape(3, 4)
+    ids = np.array([0, 5, -1], np.int32)
+    want = np.asarray(j_embedding.embed(jnp.asarray(table), jnp.asarray(ids),
+                                        "dense"))
+    np.testing.assert_array_equal(want[[0, 2]], table[[0, 2]])
+    assert np.isnan(want[1]).all()
+    t = torch.from_numpy(table)
+    with pytest.raises(IndexError):
+        embedding.embed(t, torch.from_numpy(ids), "dense")
+    np.testing.assert_array_equal(
+        embedding.embed(t, torch.tensor([0, -1]), "mapsin").numpy(),
+        table[[0, 2]])
 
 
 def test_serve_cli_runs_on_the_cpu():

@@ -1,8 +1,10 @@
 """The port's TransformerLM families against the JAX package's: qwen3-8b
 (qk-norm), deepseek-7b, yi-34b, dbrx-132b (MoE), pixtral-12b (vlm: patch
-embeddings before the text) and musicgen-large (audio: four codebooks),
-each at ``reduce_for_smoke`` on both sides, and dbrx with a leading dense
-layer and a shared expert (both layer groups, the shared branch).
+embeddings before the text), musicgen-large (audio: four codebooks) and
+deepseek-v3-671b (MLA with its latent caches, a leading dense layer, a
+shared expert, multi-token prediction), each at ``reduce_for_smoke`` on
+both sides, and dbrx with a leading dense layer and a shared expert (both
+layer groups, the shared branch).
 
 The JAX parameters are made once a config by ``init_tree`` and carried
 over with ``params_from_numpy``; prompts, labels and patch embeddings come
@@ -12,7 +14,8 @@ params and activations; tolerances:
 - caches (bfloat16, the config's ``kv_cache_dtype``) within one bfloat16
   step: a cached value may round to the neighbouring bfloat16;
 - greedy ids equal;
-- ``loss`` within 1e-5 absolute and every gradient leaf within 1e-5 of
+- ``loss`` and each metric (ce, aux, deepseek-v3's mtp_ce) within 1e-5
+  absolute and every gradient leaf (the ``mtp`` subtree's too) within 1e-5 of
   the leaf's largest gradient (tests/test_torch_train.py's bounds: the
   port's full-softmax attention against the reference's blockwise online
   softmax, the router's float32 products in another order; measured up
@@ -49,7 +52,7 @@ B, S, DECODE = 2, 40, 3
 # dbrx with a leading dense layer (its own d_ff) and one shared expert
 MIXED = dict(first_dense_layers=1, dense_d_ff=96, num_shared_experts=1)
 CASES = ["qwen3-8b", "deepseek-7b", "yi-34b", "dbrx-132b", "pixtral-12b",
-         "musicgen-large", "dbrx-132b+mixed"]
+         "musicgen-large", "dbrx-132b+mixed", "deepseek-v3-671b"]
 
 
 def _np(x):
@@ -207,8 +210,10 @@ def test_loss_and_grads_match_jax(case):
         lm["jmodel"].loss, has_aux=True))(lm["jparams"], _jbatch(batch))
     loss, met, grads = loss_and_grads(lm["model"], lm["params"], _tbatch(batch))
     _close(loss, jloss, 0, 1e-5)
-    _close(met["ce"], jmet["ce"], 0, 1e-5)
-    _close(met["aux"], jmet["aux"], 0, 1e-5)
+    assert set(met) == set(jmet) == {"ce", "aux"} | (
+        {"mtp_ce"} if lm["cfg"].mtp_depth else set())
+    for name in met:
+        _close(met[name], jmet[name], 0, 1e-5)
     assert (float(met["aux"]) > 0) == bool(lm["cfg"].num_experts)
     jflat = dict(j_tree_paths(jgrads))
     flat = dict(tree_paths(grads))
@@ -286,7 +291,7 @@ def test_topk_ties_take_the_lower_expert_first():
 
 
 @pytest.mark.parametrize("case", ["pixtral-12b", "musicgen-large",
-                                  "dbrx-132b"])
+                                  "dbrx-132b", "deepseek-v3-671b"])
 def test_decode_consistency(case):
     """Teacher forcing: prefill(s) + decode(tok_s) == prefill(s + 1). A
     MoE layer's capacity depends on the tokens it is given (a prompt's
