@@ -125,7 +125,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
                no_grad: ce, aux and mtp_ce finite, loss = ce + 1e-3 aux +
                0.1 mtp_ce; (f) the float8 cache cast on the card equal to
                the CPU's bit for bit;
-  12. LM training at full width — yi-6b's width (d 4096, 32/4 heads x
+  12. LM recurrent — recurrentgemma-9b whole (38 layers: RG-LRU blocks
+               and local attention, window 2048, 16/1 heads x 256; 10.445
+               B params, bf16, weights from the seed): (a) 4 prompts of
+               4096 tokens (twice the window) and 32 greedy steps through
+               generate: prefill ms and tokens/s, decode ms/token beside
+               the time to read what decode reads, peak memory, a
+               profiled prefill and decode step; (b) no kernel launched
+               (flash attention has no window and no head dim 256); (c)
+               local_attention against naive_attention(window=2048) on
+               the first attention layer's own inputs (1 x 4096) under
+               phase 11 (c)'s bounds; (d) rg_lru_scan against a float32
+               step-by-step recurrence on the first recurrent layer's
+               gates (1 x 4096 x 4096), rtol 2e-5, atol 1e-5, TF32 off;
+               (e) prefill(1 x 4096) + decode_step against prefill(1 x
+               4097) within the logits gate, free of host syncs, the step
+               writing slot 0 of every attention layer's rotating cache;
+               a windowed attention(impl="kernel") on bf16 CUDA tensors
+               launching no flash kernel and equal to local_attention bit
+               for bit; then xlstm-125m whole (12 layers, sLSTM at 5 and
+               11): (a), (b) at 4 x 2048, (c) mlstm_chunkwise against the
+               token-by-token mlstm_decode on layer 0's inputs within
+               2e-4, (d) prefill(1 x 2048) + decode_step against
+               prefill(1 x 2049), free of host syncs;
+  13. LM training at full width — yi-6b's width (d 4096, 32/4 heads x
                128, d_ff 11008, vocab 64000, bf16) cut to 16 layers,
                batch 2 x 4096 from batch_for_step, remat "names", through
                runtime.Trainer.run for 6 steps (the first a warm-up, the
@@ -142,7 +165,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
                crash-resume on one full-width layer (1 x 1024, 6 steps,
                checkpoint every 4, killed at 5) with checkpoint write and
                load GB/s; `python -m repro_torch.launch.train --smoke`;
-  13. summary — the kernels line, the memory line, the card line, and the
+  14. summary — the kernels line, the memory line, the card line, and the
                result line as the last line.
 It needs a CUDA device and the repository's src/ beside it.
 """
@@ -629,19 +652,20 @@ def fuzz_flash_attention(torch, ops, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def all_call_args(ops, name: str, run) -> list:
-    """The arguments of every call of the wrapper `ops.<name>` during
-    `run()`, in order, by name: the wrapper is swapped for one that
-    records its arguments and calls through, then restored (the shards
-    of a mesh call it from threads of their own)."""
+def all_call_args(ops, name: str, run, most: int | None = None) -> list:
+    """The arguments of every call (the first `most`, where given) of the
+    wrapper `ops.<name>` during `run()`, in order, by name: the wrapper is
+    swapped for one that records its arguments and calls through, then
+    restored (the shards of a mesh call it from threads of their own)."""
     orig = getattr(ops, name)
     sig = inspect.signature(orig)
     seen = []
 
     def record(*a, **kw):
-        bound = sig.bind(*a, **kw)
-        bound.apply_defaults()
-        seen.append(dict(bound.arguments))
+        if most is None or len(seen) < most:
+            bound = sig.bind(*a, **kw)
+            bound.apply_defaults()
+            seen.append(dict(bound.arguments))
         return orig(*a, **kw)
 
     setattr(ops, name, record)
@@ -3141,7 +3165,363 @@ def run_lm_mla(torch, args, card: str, failures: list) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 12: LM training at full width
+# phase 12: the recurrent families at full width
+# ---------------------------------------------------------------------------
+
+# recurrentgemma-9b whole (38 layers, 10.445 B params, 20.89 GB in bf16)
+# at 4 x 4096: twice its 2048-position window, since the rotating window
+# cache agrees with a longer prefill only where the prompt is a multiple
+# of the window (ROADMAP, known behaviour 14); xlstm-125m whole at 4 x
+# 2048, its training context (arXiv:2405.04517).
+RG_ARCH, RG_PROMPT = "recurrentgemma-9b", 4096
+XL_ARCH, XL_PROMPT = "xlstm-125m", 2048
+SCAN_TOL = dict(rtol=2e-5, atol=1e-5)    # tests/test_recurrent_cells.py:21
+MLSTM_TOL = 2e-4                         # tests/test_recurrent_cells.py:44-60
+WINDOW_SHAPE = (1, 4096, 32, 8, 128, 2048)  # b, s, h, g, e, window: yi-6b's heads
+
+
+def serve_recurrent(torch, args, arch: str, prompt: int, tag: str,
+                    card: str, failures: list) -> dict:
+    """(a) 4 prompts of `prompt` tokens and 32 greedy steps through
+    launch/serve.py's generate, the main path, with the kernel counts set
+    to 0 just before and read just after (b: every count must stay 0, the
+    flash kernel's too); prefill ms (median of 3), tokens/s, decode
+    ms/token beside the time to read what decode reads, peak memory, and a
+    profiled prefill and decode step. Returns the model, its weights and
+    the numbers."""
+    import numpy as np
+
+    from repro_torch.common import param_bytes, param_count
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = model.init_params(args.seed)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    # what one decode step reads of the weights: all of them but the
+    # embedding table, of which it reads a row (unless it is the tied head)
+    read, what = param_bytes(params), "every weight, the tied embedding as the head"
+    if "lm_head" in params:
+        read -= param_bytes(params["embed"])
+        what = "every weight but the embedding table"
+    floor = read / HBM_BYTES_PER_S * 1e3
+    log(f"[{tag}] {arch}: {cfg.num_layers} layers (all), d {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab {cfg.vocab_size}, "
+        f"{cfg.param_dtype}; {param_count(params) / 1e9:.3f} B params, "
+        f"{param_bytes(params)} bytes; init_params {t_init:.2f} s; prompts "
+        f"{LM_BATCH} x {prompt}, {LM_DECODE} decode steps")
+    rng = np.random.RandomState(args.seed)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (LM_BATCH, prompt)),
+                           dtype=torch.int32, device="cuda")
+    batch = {"tokens": toks}
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    ids, t_first, t_decode = generate(model, params, toks, LM_DECODE)
+    launches = dict(ops.launches)
+    serve_peak = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] (b) main path (launch/serve.py generate): kernel launches "
+        f"{launches} (want 0: the {cfg.family} family reaches no kernel); "
+        f"first prefill {t_first * 1e3:.3f} ms, decode "
+        f"{t_decode * 1e3:.3f} ms/token; {card}")
+    if any(launches.values()):
+        failures.append(f"{tag} (b): kernel launches {launches}, want none")
+    if not (ids.shape == (LM_BATCH, LM_DECODE) and int(ids.min()) >= 0
+            and int(ids.max()) < cfg.vocab_size):
+        failures.append(f"{tag} (a): generated ids {tuple(ids.shape)} out of "
+                        f"range")
+
+    t_prefill = wall_ms(torch, lambda: model.prefill(params, batch), runs=3)
+    tok_s = LM_BATCH * prompt / (t_prefill / 1e3)
+    logits, cache = model.prefill(params, batch)
+    if not bool(torch.isfinite(logits).all()):
+        failures.append(f"{tag} (a): prefill logits are not finite")
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    profile_query(torch, lambda: model.prefill(params, batch),
+                  f"{arch} prefill", reps=1)
+    profile_query(torch, lambda: model.decode_step(params, cache, tok),
+                  f"{arch} decode step")
+    del cache, logits
+    log(f"[{tag}] (a) prefill {LM_BATCH}x{prompt}: {t_prefill:.3f} ms (median "
+        f"of 3), {tok_s:.1f} tokens/s; decode {t_decode * 1e3:.3f} ms/token "
+        f"({LM_BATCH} sequences; reading what decode reads, {what}, "
+        f"{read} bytes, takes {floor:.3f} ms at 3.35 TB/s); peak memory "
+        f"{serve_peak} bytes "
+        f"({serve_peak / 2 ** 30:.2f} GiB) serving; {card}")
+    return dict(model=model, params=params, rng=rng, batch=batch,
+                launches=launches,
+                prefill_ms=t_prefill, tokens_per_s=tok_s,
+                decode_ms=t_decode * 1e3, decode_floor_ms=floor,
+                serve_peak=serve_peak)
+
+
+def attention_caches(model, cache) -> list:
+    """Every attention layer's k and v cache of a RecurrentGemmaLM cache,
+    (b, W, g, e) views, in layer order."""
+    pat = model.cfg.block_pattern
+    bufs = []
+    if "macros" in cache:
+        for m in range(model.n_macro):
+            for i, t in enumerate(pat):
+                if t == "attn":
+                    bufs.extend(buf[m] for buf in cache["macros"][f"b{i}"])
+    for j in range(model.n_tail):
+        if pat[j] == "attn":
+            bufs.extend(cache[f"tail{j}"])
+    return bufs
+
+
+def free_running(torch, run, tag: str, what: str, failures: list):
+    """run() under torch.cuda's sync debug mode "error" (a host sync
+    raises); on a sync, the failure is recorded and run() repeated with
+    the mode restored."""
+    mode = torch.cuda.get_sync_debug_mode()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run(), "none"
+        except RuntimeError as e:
+            synced = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    failures.append(f"{tag}: {what} synchronised with the host: {synced}")
+    return run(), synced
+
+
+def check_consistency(torch, model, params, rng, prompt: int, tag: str,
+                      card: str, failures: list, watch=None) -> dict:
+    """prefill(1 x prompt) + decode_step(the next token) against the last
+    logits of prefill(1 x prompt + 1), the first run free of host syncs
+    (`free_running`), within the logits gate. `watch(cache)`, where
+    given, runs between the prefill and the step and returns a check of
+    the cache for after it."""
+    cfg = model.cfg
+    seq = torch.as_tensor(rng.randint(0, cfg.vocab_size, (1, prompt + 1)),
+                          dtype=torch.int32, device="cuda")
+    after = []
+
+    def run():
+        _, cache = model.prefill(params, {"tokens": seq[:, :prompt]})
+        if watch is not None:
+            after.append(watch(cache))
+        got, _ = model.decode_step(params, cache, seq[:, prompt:])
+        return got
+
+    got, synced = free_running(torch, run, f"{tag} (consistency)",
+                               "prefill + decode_step", failures)
+    want, _ = model.prefill(params, {"tokens": seq})
+    got, want = got.float(), want.float()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    log(f"[{tag}] prefill(1 x {prompt}) + decode_step against prefill(1 x "
+        f"{prompt + 1}): max|logits| {scale:.4f}, max|delta| {err:.5f}, "
+        f"{err / scale:.4f} of max|logits| (bound {LOGIT_TOL}); host syncs "
+        f"under debug mode 'error': {synced}; {card}")
+    if not (math.isfinite(scale) and err <= LOGIT_TOL * scale):
+        failures.append(f"{tag}: decode and prefill logits differ by {err} "
+                        f"(bound {LOGIT_TOL * scale})")
+    out = dict(rel_err=err / scale)
+    if after:
+        out["after"] = after[-1]
+    return out
+
+
+def check_local_attention(torch, attn_lib, x: dict, window: int, card: str,
+                          failures: list) -> dict:
+    """(c) local_attention against naive_attention(window=...) on the
+    first sequence of the first attention layer's own (q, k, v), under
+    the bounds phase 11 (c) holds the blockwise MLA to; both timed."""
+    q, k, v = (x[n][:1].contiguous() for n in ("q", "k", "v"))
+    block_q = x["block_q"]
+
+    def local():
+        return attn_lib.local_attention(q, k, v, window=window, block_q=block_q)
+
+    def naive():
+        return attn_lib.naive_attention(q, k, v, window=window)
+
+    got, want = local(), naive()
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    row = row_rel_err(got, want)
+    top = float(want.float().abs().max())
+    tol = max(ATTN_TOL["bfloat16"], 2 ** -7 * top)
+    del got, want, diff
+    t_local = cuda_ms(torch, local, iters=3, warmup=1)
+    t_naive = cuda_ms(torch, naive, iters=3, warmup=1)
+    s, h, e = q.shape[1], q.shape[2], q.shape[3]
+    pairs = sum(min(i + 1, window) for i in range(s))
+    flops = 4 * h * e * pairs
+    log(f"[rg] (c) local attention, first attention layer, 1 x {s}, "
+        f"{h}/{k.shape[2]} heads x {e}, window {window}, block_q {block_q}, "
+        f"{q.dtype}: against naive max_abs_err {err:.3e} (bound max(2e-2, "
+        f"2^-7 x max|o| {top:.4f}) = {tol:.3e}), row_rel_err {row:.3e} "
+        f"(bound {ATTN_ROW_TOL['bfloat16']:.3e}); local {t_local:.3f} ms, "
+        f"naive {t_naive:.3f} ms ({flops:.4e} flops of windowed scores and "
+        f"values); {card}")
+    if not (err <= tol and row <= ATTN_ROW_TOL["bfloat16"]):
+        failures.append(f"rg (c): local and naive attention differ by {err} "
+                        f"(bound {tol}), row {row}")
+    return dict(max_abs_err=err, row_rel_err=row, local_ms=t_local,
+                naive_ms=t_naive)
+
+
+def check_scan(torch, rec, x: dict, card: str, failures: list) -> dict:
+    """(d) rg_lru_scan against a float32 step-by-step recurrence on the
+    first sequence of the first recurrent layer's own gates (b_in, log_a),
+    TF32 off, under tests/test_recurrent_cells.py's bounds."""
+    u, log_a = x["u"][:1].contiguous(), x["log_a"][:1].contiguous()
+    got = rec.rg_lru_scan(u, log_a, None)
+    a = torch.exp(log_a)
+    h = torch.zeros_like(u[:, 0])
+    want = torch.empty_like(u)
+    for t in range(u.shape[1]):
+        h = a[:, t] * h + u[:, t]
+        want[:, t] = h
+    err = (got - want).abs()
+    excess = float((err / (SCAN_TOL["atol"] + SCAN_TOL["rtol"] * want.abs())).max())
+    t_scan = cuda_ms(torch, lambda: rec.rg_lru_scan(u, log_a, None), iters=3,
+                     warmup=1)
+    log(f"[rg] (d) rg_lru_scan, first recurrent layer, {tuple(u.shape)} "
+        f"float32 (TF32 {torch.backends.cuda.matmul.allow_tf32}): against "
+        f"the step-by-step recurrence max_abs_err {float(err.max()):.3e}, "
+        f"max |h| {float(want.abs().max()):.4f}, largest error over "
+        f"atol {SCAN_TOL['atol']:g} + rtol {SCAN_TOL['rtol']:g} x |h|: "
+        f"{excess:.4f} (bound 1); scan {t_scan:.3f} ms; {card}")
+    if not excess <= 1.0:
+        failures.append(f"rg (d): rg_lru_scan is {excess} x the bound from "
+                        f"the recurrence")
+    return dict(max_abs_err=float(err.max()), bound_share=excess,
+                scan_ms=t_scan)
+
+
+def check_windowed_dispatch(torch, args, attn_lib, ops, card: str,
+                            failures: list) -> dict:
+    """A windowed TransformerLM call: attention(..., impl="kernel",
+    window=W) on bf16 CUDA tensors at yi-6b's heads launches no flash
+    kernel and equals local_attention bit for bit."""
+    b, s, h, g, e, w = WINDOW_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    q, k, v = (torch.randn((b, s, n, e), generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for n in (h, g, g))
+    ops.reset_launches()
+    got = attn_lib.attention(q, k, v, impl="kernel", window=w)
+    launches = dict(ops.launches)
+    same = bool(torch.equal(got, attn_lib.local_attention(q, k, v, window=w)))
+    log(f"[rg] windowed dispatch attention(impl='kernel', window {w}) at "
+        f"{b} x {s}, {h}/{g} heads x {e}, bf16: kernel launches {launches} "
+        f"(want 0), equal to local_attention bit for bit: {same}; {card}")
+    if any(launches.values()) or not same:
+        failures.append(f"windowed dispatch: launches {launches}, equal {same}")
+    return dict(launches=launches, same=same)
+
+
+def run_lm_recurrent(torch, args, card: str, failures: list) -> dict:
+    """recurrentgemma-9b at full width and depth: (a), (b)
+    (serve_recurrent), (c) check_local_attention, (d) check_scan, (e)
+    check_consistency at 1 x 4096 with the step's write to slot
+    4096 % 2048 = 0 of every attention layer's cache; the windowed
+    dispatch; then xlstm-125m at full width and depth: (a), (b), (c)
+    mlstm_chunkwise against the token-by-token mlstm_decode on layer 0's
+    inputs, (d) check_consistency at 1 x 2048."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import recurrent as rec
+    from repro_torch.models import xlstm
+
+    t_start = time.perf_counter()
+    out = {}
+    rg = serve_recurrent(torch, args, RG_ARCH, RG_PROMPT, "rg", card, failures)
+    model, params, batch = rg.pop("model"), rg.pop("params"), rg.pop("batch")
+    # the first layer's inputs only: every layer's scan inputs are 14 GB
+    xa = all_call_args(attn_lib, "local_attention",
+                       lambda: model.prefill(params, batch), most=1)[0]
+    rg["attention"] = check_local_attention(torch, attn_lib, xa,
+                                            model.cfg.window_size, card,
+                                            failures)
+    del xa
+    xs = all_call_args(rec, "rg_lru_scan",
+                       lambda: model.prefill(params, batch), most=1)[0]
+    rg["scan"] = check_scan(torch, rec, xs, card, failures)
+    del xs
+    W = model.cfg.window_size
+    slot = RG_PROMPT % W
+
+    def watch(cache):
+        """Copies every attention layer's k and v cache; returns what
+        reads, after the step, the slots each one changed in."""
+        bufs = attention_caches(model, cache)
+        before = [buf.clone() for buf in bufs]
+        return lambda: [tuple(torch.nonzero((buf != old).flatten(2).any(-1)
+                                            .any(0)).flatten().tolist())
+                        for buf, old in zip(bufs, before)]
+
+    cons = check_consistency(torch, model, params, rg["rng"], RG_PROMPT, "rg",
+                             card, failures, watch)
+    slots = cons.pop("after")()
+    log(f"[rg] (e) slots the step wrote in the {len(slots)} attention "
+        f"caches (k and v of each attention layer): {sorted(set(slots))} "
+        f"(want [({slot},)]: {RG_PROMPT} % {W}); {card}")
+    if set(slots) != {(slot,)}:
+        failures.append(f"rg (e): the decode step wrote slots "
+                        f"{sorted(set(slots))}, want only {slot} in every "
+                        f"attention layer")
+    rg["consistency"] = cons
+    out["window"] = check_windowed_dispatch(torch, args, attn_lib, ops, card,
+                                            failures)
+    rg["peak"] = torch.cuda.max_memory_allocated()
+    del model, params, batch
+    torch.cuda.empty_cache()
+    t_rg = time.perf_counter() - t_start
+    out[RG_ARCH] = rg
+
+    xl = serve_recurrent(torch, args, XL_ARCH, XL_PROMPT, "xl", card, failures)
+    model, params, batch = xl.pop("model"), xl.pop("params"), xl.pop("batch")
+    x = all_call_args(xlstm, "mlstm_chunkwise",
+                      lambda: model.prefill(params, batch), most=1)[0]
+    q, k, v, li, lf = (x[n][:1].contiguous() for n in
+                       ("q", "k", "v", "log_i", "log_f"))
+    got, _ = xlstm.mlstm_chunkwise(q, k, v, li, lf)
+    b, s, h, e = q.shape
+    state = (q.new_zeros((b, h, e, e)), q.new_zeros((b, h, e)),
+             q.new_full((b, h), xlstm.M_INIT))
+    want = torch.empty_like(got)
+    for t in range(s):
+        want[:, t], state = xlstm.mlstm_decode(q[:, t], k[:, t], v[:, t],
+                                               li[:, t], lf[:, t], state)
+    err = (got - want).abs()
+    excess = float((err / (MLSTM_TOL + MLSTM_TOL * want.abs())).max())
+    log(f"[xl] (c) mlstm_chunkwise (chunk {xlstm.CHUNK}) against the "
+        f"token-by-token mlstm_decode, layer 0, {tuple(q.shape)} float32: "
+        f"max_abs_err {float(err.max()):.3e}, max |out| "
+        f"{float(want.abs().max()):.4f}, largest error over {MLSTM_TOL:g} + "
+        f"{MLSTM_TOL:g} x |out|: {excess:.4f} (bound 1); {card}")
+    if not excess <= 1.0:
+        failures.append(f"xl (c): mlstm_chunkwise is {excess} x the bound "
+                        f"from the recurrence")
+    xl["mlstm"] = dict(max_abs_err=float(err.max()), bound_share=excess)
+    del x, q, k, v, li, lf, got, want, state
+    xl["consistency"] = check_consistency(torch, model, params, xl["rng"],
+                                          XL_PROMPT, "xl", card, failures)
+    xl["peak"] = torch.cuda.max_memory_allocated()
+    del model, params, batch
+    torch.cuda.empty_cache()
+    out[XL_ARCH] = xl
+    t_all = time.perf_counter() - t_start
+    log(f"[rec] phase peak memory {max(rg['peak'], xl['peak'])} bytes; "
+        f"{t_all:.1f} s ({RG_ARCH} {t_rg:.1f} s, {XL_ARCH} "
+        f"{t_all - t_rg:.1f} s); {card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: LM training at full width
 # ---------------------------------------------------------------------------
 
 # yi-6b at full width cut to 16 of its 32 layers: with float32 moments all
@@ -3737,6 +4117,20 @@ def main() -> int:
         failures.append(f"phase LM MLA:\n{traceback.format_exc()}")
     t_phase = phase_done("LM MLA (deepseek-v3-671b)", t_phase)
 
+    # the recurrent families at full width, after MLA's weights are freed
+    torch.cuda.empty_cache()
+    rec_peak = 0
+    try:
+        recur = run_lm_recurrent(torch, args, card, failures)
+        rec_peak = max(recur[a]["peak"] for a in (RG_ARCH, XL_ARCH))
+        if k is not None:
+            for a in (RG_ARCH, XL_ARCH):
+                k["family_launches"][a] = recur[a]["launches"]["flash_attention"]
+            k["window_launches"] = recur["window"]["launches"]["flash_attention"]
+    except Exception:
+        failures.append(f"phase LM recurrent:\n{traceback.format_exc()}")
+    t_phase = phase_done(f"LM recurrent ({RG_ARCH}, {XL_ARCH})", t_phase)
+
     # training at full width, after serving's weights are freed
     torch.cuda.empty_cache()
     try:
@@ -3767,7 +4161,8 @@ def main() -> int:
         f"({peak / 2 ** 30:.2f} GiB) over the main path; {lm_peak} bytes "
         f"({lm_peak / 2 ** 30:.2f} GiB) over LM serving; {family_peak} bytes "
         f"({family_peak / 2 ** 30:.2f} GiB) over the LM families; {mla_peak} "
-        f"bytes ({mla_peak / 2 ** 30:.2f} GiB) over LM MLA; {train_peak} bytes "
+        f"bytes ({mla_peak / 2 ** 30:.2f} GiB) over LM MLA; {rec_peak} bytes "
+        f"({rec_peak / 2 ** 30:.2f} GiB) over LM recurrent; {train_peak} bytes "
         f"({train_peak / 2 ** 30:.2f} GiB) over LM training")
     if failures:
         for f in failures:

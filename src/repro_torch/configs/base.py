@@ -7,9 +7,9 @@ values: ``"kernel"`` (the hand-written CUDA flash-attention kernel on a
 CUDA tensor, its plain version on the CPU) or ``"torch"`` (the plain
 version everywhere).
 
-Each ported architecture gets one ``configs/<arch>.py`` registering the
-published hyper-parameters; ``get_config`` raises ``KeyError`` for an
-architecture of the JAX package that this package does not run yet.
+Each architecture gets one ``configs/<arch>.py`` registering the
+published hyper-parameters; every architecture of the JAX package is
+registered, and ``get_config`` raises ``KeyError`` for any other name.
 """
 from __future__ import annotations
 
@@ -195,7 +195,8 @@ def runnable_shapes(cfg: ModelConfig) -> list[ShapeConfig]:
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 
 # architectures of the JAX package whose model families are not ported yet
-NOT_PORTED = ("recurrentgemma-9b", "xlstm-125m")
+# (none: every one runs here)
+NOT_PORTED: tuple[str, ...] = ()
 
 
 def register(name: str):

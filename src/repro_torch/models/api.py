@@ -13,14 +13,19 @@ import torch
 from repro_torch.common import tree_map_with_path, tree_paths
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models.params import pdef
+from repro_torch.models.recurrent import RecurrentGemmaLM
 from repro_torch.models.transformer import VIT_DIM, TransformerLM
+from repro_torch.models.xlstm import XLSTMLM
 from repro_torch.optim.adamw import OptConfig, adamw_update
 
 
-def build_model(cfg: ModelConfig, device="cuda") -> TransformerLM:
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet")
+def build_model(cfg: ModelConfig, device="cuda"):
+    """The model of `cfg`'s family: XLSTMLM (ssm), RecurrentGemmaLM
+    (hybrid) or TransformerLM (the rest)."""
+    if cfg.family == "ssm":
+        return XLSTMLM(cfg, device)
+    if cfg.family == "hybrid":
+        return RecurrentGemmaLM(cfg, device)
     return TransformerLM(cfg, device)
 
 
@@ -32,10 +37,7 @@ def input_defs(cfg: ModelConfig, shape: ShapeConfig,
     (n_micro, rows, seq), which ``make_train_step`` walks. The modality
     frontends are stubs: the vlm family takes precomputed patch
     embeddings (num_patches of the shape's positions), the audio family
-    one token a codebook at each position."""
-    if cfg.family not in ("dense", "moe", "vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: inputs of the {cfg.family} family are not ported yet")
+    one token a codebook at each position; the rest take plain tokens."""
     b, s, kind = shape.global_batch, shape.seq_len, shape.kind
     tok_axes: tuple = ("batch", "seq")
     lead: tuple[int, ...] = ()

@@ -1,15 +1,17 @@
-"""Attention: the naive reference, the one-step decode, the dispatch of
-prefill attention to ``kernels.ops.flash_attention``, and MLA
-(deepseek-v3's multi-head latent attention).
+"""Attention: the naive reference, sliding-window local attention, the
+one-step decode, the dispatch of prefill attention to
+``kernels.ops.flash_attention``, and MLA (deepseek-v3's multi-head latent
+attention).
 
 The GQA functions take q: (b, sq, h, e), k: (b, skv, g, e), v: (b, skv,
 g, ev) with h = g * rep. MLA's take the latent kv instead: ckv (b, s, c)
 and the roped k_pe (b, s, dr) shared by every head, with the up-projections
 kv_b_k (c, h, dn) and kv_b_v (c, h, dv). Softmax statistics are float32.
-MLA runs in plain PyTorch in both packages: its head dims (dn + dr for q
-and k, dv for v) differ, and the flash kernel takes equal ones. The JAX
-package's blockwise, triangle and local (sliding-window) variants belong
-to the model families that need them and are not here.
+MLA and the sliding window run in plain PyTorch in both packages: MLA's
+head dims (dn + dr for q and k, dv for v) differ, the flash kernel takes
+equal ones, and it has no window. The JAX package's blockwise and
+triangle variants are its XLA lowerings of full causal attention, which
+the flash kernel does here; they are not ported.
 """
 from __future__ import annotations
 
@@ -26,45 +28,101 @@ def _split_heads(q: torch.Tensor, g: int) -> torch.Tensor:
     return q.reshape(b, s, g, h // g, e)
 
 
-def naive_attention(q, k, v, *, causal=True, scale=None):
+def naive_attention(q, k, v, *, causal=True, window=0, scale=None):
     """Reference: materializes the full score matrix; causal rows are
-    right-aligned to the keys (the last query sees every key)."""
+    right-aligned to the keys (the last query sees every key). With a
+    window, query q sees only keys k with q - k < window."""
     b, sq, h, eq = q.shape
     g, skv = k.shape[2], k.shape[1]
     scale = scale or eq ** -0.5
     s = torch.einsum("bqgre,bkge->bgrqk", _split_heads(q, g).float(),
                      k.float()) * scale
-    if causal:
+    if causal or window:
         q_pos = torch.arange(sq, device=q.device) + (skv - sq)
         k_pos = torch.arange(skv, device=q.device)
-        s = s.masked_fill(k_pos[None, :] > q_pos[:, None], NEG)
+        masked = torch.zeros((sq, skv), dtype=torch.bool, device=q.device)
+        if causal:
+            masked |= k_pos[None, :] > q_pos[:, None]
+        if window:
+            masked |= q_pos[:, None] - k_pos[None, :] >= window
+        s = s.masked_fill(masked, NEG)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrqk,bkgf->bqgrf", p.to(v.dtype), v)
     return o.reshape(b, sq, h, v.shape[-1])
 
 
-def decode_attention(q, k_cache, v_cache, cur_len, *, scale=None):
+def local_attention(q, k, v, *, window, block_q=512, scale=None):
+    """Sliding-window causal attention in O(sq * window): query q sees the
+    keys k <= q with q - k < window. q and k start at the same position
+    (sq == skv, a prefill). Each block of block_q queries touches only
+    the kv span [clip(q_start - window, 0, skv - span), + span), span =
+    min(window + block_q, skv), so no sq x skv score matrix is held; the
+    last block is short (the JAX package pads it and drops the padded
+    rows, which changes no other row). Scores and softmax in float32, the
+    probabilities rounded to v's dtype before the product, as the JAX
+    package's ``local_attention``."""
+    b, sq, h, eq = q.shape
+    g, skv, ev = k.shape[2], k.shape[1], v.shape[-1]
+    scale = scale or eq ** -0.5
+    block_q = min(block_q, sq)
+    span = min(window + block_q, skv)
+    out = torch.empty((b, sq, h, ev), dtype=v.dtype, device=q.device)
+    for q_start in range(0, sq, block_q):
+        qb = q[:, q_start:q_start + block_q]
+        bq = qb.shape[1]
+        start = min(max(q_start - window, 0), skv - span)
+        kj, vj = k[:, start:start + span], v[:, start:start + span]
+        s = torch.einsum("bqgre,bkge->bgrqk", _split_heads(qb, g).float(),
+                         kj.float()) * scale
+        q_pos = q_start + torch.arange(bq, device=q.device)
+        k_pos = start + torch.arange(span, device=q.device)
+        msk = ((k_pos[None] <= q_pos[:, None])
+               & (q_pos[:, None] - k_pos[None] < window))
+        s = s.masked_fill(~msk, NEG)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * msk
+        p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+        o = torch.einsum("bgrqk,bkgf->bqgrf", p.to(v.dtype), vj)
+        out[:, q_start:q_start + bq] = o.reshape(b, bq, h, ev)
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, scale=None):
     """One-step decode: q (b, 1, h, eq) against cache (b, S, g, e*).
 
     cur_len: 0-dim int tensor — the number of valid cache positions
     (including this step's freshly inserted kv); it stays on the device, so
-    a decode step never waits for the host.
+    a decode step never waits for the host. With a window (a rotating
+    cache of S == window slots) the valid slots are those below
+    min(cur_len, window), as in the JAX package: slot validity, not
+    position.
     """
     b, _, h, eq = q.shape
     g, S = k_cache.shape[2], k_cache.shape[1]
     scale = scale or eq ** -0.5
     qg = q.reshape(b, g, h // g, eq)
     s = torch.einsum("bgre,bsge->bgrs", qg.float(), k_cache.float()) * scale
-    valid = torch.arange(S, device=q.device) < cur_len
+    valid = torch.arange(S, device=q.device) < (
+        torch.clamp(cur_len, max=window) if window else cur_len)
     s = s.masked_fill(~valid, NEG)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrs,bsgf->bgrf", p.to(v_cache.dtype), v_cache)
     return o.reshape(b, 1, h, v_cache.shape[-1])
 
 
-def attention(q, k, v, *, impl="kernel", causal=True, scale=None):
+def attention(q, k, v, *, impl="kernel", causal=True, window=0,
+              block_q=512, scale=None):
     """Prefill attention through ``ops.flash_attention``: the CUDA kernel
-    for CUDA tensors under ``impl="kernel"``, else its plain version."""
+    for CUDA tensors under ``impl="kernel"``, else its plain version. A
+    windowed call never reaches the kernel, which has no window: a causal
+    one runs ``local_attention`` under every impl, another
+    ``naive_attention`` (the JAX package's ``pallas_interpret`` path
+    drops the window instead)."""
+    if window:
+        if causal:
+            return local_attention(q, k, v, window=window, block_q=block_q,
+                                   scale=scale)
+        return naive_attention(q, k, v, causal=False, window=window,
+                               scale=scale)
     return ops.flash_attention(q, k, v, causal=causal, scale=scale, impl=impl)
 
 

@@ -40,6 +40,34 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+def geglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+          w_down: torch.Tensor) -> torch.Tensor:
+    """GELU-gated feed-forward. The GELU is the tanh approximation, which
+    is ``jax.nn.gelu``'s default (the exact one differs by about 1e-3)."""
+    return (F.gelu(x @ w_gate, approximate="tanh") * (x @ w_up)) @ w_down
+
+
+def causal_conv1d(x: torch.Tensor, kernel: torch.Tensor,
+                  state: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal 1-D convolution.
+
+    x: (b, s, c); kernel: (w, c); state: the (b, w - 1, c) inputs before
+    x (zeros where None). Returns (y, new_state), new_state the trailing
+    w - 1 inputs for streaming decode. The taps are summed in x's dtype,
+    one at a time, as the JAX package sums them."""
+    w = kernel.shape[0]
+    b, s, c = x.shape
+    if state is None:
+        state = x.new_zeros((b, w - 1, c))
+    xp = torch.cat([state, x], dim=1)  # (b, s + w - 1, c)
+    y = torch.zeros_like(x)
+    for i in range(w):
+        y = y + xp[:, i:i + s] * kernel[i]
+    new_state = xp[:, s:] if w > 1 else x.new_zeros((b, 0, c))
+    return y, new_state
+
+
 def _xent_chunk(h, head_w, y, m):
     """(sum of masked token losses, sum of the mask) of one chunk, from
     float32 logits. A label of -1 marks a masked position: JAX's

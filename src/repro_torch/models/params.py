@@ -48,6 +48,17 @@ def stack_defs(defs: Any, n: int, axis_name: str = "layers") -> Any:
     return tree_map_with_path(f, defs)
 
 
+def unstack(stacked: Any) -> list:
+    """The per-layer trees of a tree stacked by `stack_defs`, taken with
+    one ``unbind(0)`` a leaf: its backward writes the leaf's gradient
+    once, where one ``t[i]`` a layer would write a zeroed whole-leaf
+    gradient a layer."""
+    parts = {path: t.unbind(0) for path, t in tree_paths(stacked)}
+    n = len(next(iter(parts.values())))
+    return [tree_map_with_path(lambda path, _: parts[path][i], stacked)
+            for i in range(n)]
+
+
 def bytes_of(defs: Any) -> int:
     return sum(int(np.prod(d.shape)) * dtype_of(d.dtype).itemsize
                for _, d in tree_paths(defs))

@@ -14,8 +14,11 @@ decode margin, ``decode_step`` extends it by one token. A GQA layer caches
 over each group's stacked layers is a Python loop over the layer index.
 The vlm family prepends projected patch embeddings (a stub ViT's output)
 to the text; the audio family sums one embedding a codebook and predicts
-every codebook. Sliding-window attention and the ssm/hybrid families
-belong to later slices and raise ``NotImplementedError``.
+every codebook. With ``window_size`` the attention is a causal sliding
+window (``attention.local_attention``) and a prompt longer than the window
+keeps only its last ``window_size`` positions in a rotating cache, as the
+JAX package does (see ``prefill``). The hybrid and ssm families are
+``models/recurrent.py`` and ``models/xlstm.py``.
 """
 from __future__ import annotations
 
@@ -27,15 +30,15 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.common import (cache_cast, dtype_of, resolve_device,
-                                tree_map_with_path, tree_paths)
+from repro_torch.common import cache_cast, dtype_of, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import embedding as embed_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (apply_rope, rms_norm,
                                       softmax_xent_chunked, swiglu)
-from repro_torch.models.params import ParamDef, init_params, pdef, stack_defs
+from repro_torch.models.params import (ParamDef, init_params, pdef, stack_defs,
+                                      unstack)
 
 VIT_DIM = 1024  # pixtral ViT stub output width
 GROUPS = (("dense_layers", False), ("moe_layers", True))
@@ -51,14 +54,23 @@ def _save_dots_without_batch_dims(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _cache_write(buf, cur_len, t):
-    """buf[:, min(cur_len, S - 1)] = t in buf's dtype (`cache_cast`): the
-    index JAX's ``dynamic_update_slice`` clamps to, written by
-    ``index_copy_`` at the device-side index, so decode never waits for the
-    host. buf: one layer's (b, S, ...) cache view; t: (b, 1, ...). A float8
-    cache is written through its bytes (``index_copy_`` has no float8 CPU
-    kernel)."""
-    idx = torch.clamp(cur_len, max=buf.shape[1] - 1).reshape(1).long()
+def cache_slot(cur_len, S: int, window: int = 0):
+    """The cache slot a decode step at position `cur_len` (0-dim int
+    tensor) writes, on the device: cur_len % window in a rotating cache
+    of S == window slots, else min(cur_len, S - 1), the index JAX's
+    ``dynamic_update_slice`` clamps to."""
+    if window and S == window:
+        return torch.remainder(cur_len, window)
+    return torch.clamp(cur_len, max=S - 1)
+
+
+def _cache_write(buf, slot, t):
+    """buf[:, slot] = t in buf's dtype (`cache_cast`), written by
+    ``index_copy_`` at the device-side `slot` (`cache_slot`), so decode
+    never waits for the host. buf: one layer's (b, S, ...) cache view; t:
+    (b, 1, ...). A float8 cache is written through its bytes
+    (``index_copy_`` has no float8 CPU kernel)."""
+    idx = slot.reshape(1).long()
     t = cache_cast(t, buf.dtype)
     if buf.dtype == torch.float8_e4m3fn:
         buf, t = buf.view(torch.uint8), t.view(torch.uint8)
@@ -87,15 +99,10 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        unported = [name for name, on in (
-            (f"family {cfg.family!r}",
-             cfg.family not in ("dense", "moe", "vlm", "audio")),
-            ("sliding-window attention", bool(cfg.window_size))) if on]
-        if unported:
-            raise NotImplementedError(
-                f"{cfg.name}: {', '.join(unported)} is not ported yet; this "
-                f"package runs the dense, MoE, vlm and audio decoders with "
-                f"GQA or MLA")
+        if cfg.family not in ("dense", "moe", "vlm", "audio"):
+            raise ValueError(f"{cfg.name}: TransformerLM runs the dense, MoE, "
+                             f"vlm and audio families, not {cfg.family!r} "
+                             f"(models.build_model picks the model)")
         self.cfg = cfg
         self.device = resolve_device(device, "TransformerLM")
         self.adt = dtype_of(cfg.activation_dtype)
@@ -208,9 +215,10 @@ class TransformerLM(nn.Module):
     def _gqa_attention(self, p, x, positions, *, mode, cache=None,
                        cur_len=None):
         """mode "prefill": attention over the prompt through the flash
-        kernel, returning this layer's (k, v). mode "decode": writes the new
-        (k, v) into `cache` (this layer's (b, S, g, e) views of the stacked
-        cache) in place (`_cache_write`) and attends over the cache."""
+        kernel (``local_attention`` with a window), returning this layer's
+        (k, v). mode "decode": writes the new (k, v) into `cache` (this
+        layer's (b, S, g, e) views of the stacked cache) in place at
+        `cache_slot` (`_cache_write`) and attends over the cache."""
         c = self.cfg
         eps = c.norm_eps
         xs = rms_norm(x, p["norm"], eps)
@@ -225,13 +233,14 @@ class TransformerLM(nn.Module):
         new_kv = None
         if mode == "decode":
             kc, vc = cache
-            _cache_write(kc, cur_len, k)
-            _cache_write(vc, cur_len, v)
+            slot = cache_slot(cur_len, kc.shape[1], c.window_size)
+            _cache_write(kc, slot, k)
+            _cache_write(vc, slot, v)
             o = attn_lib.decode_attention(q, kc.to(self.adt), vc.to(self.adt),
-                                          cur_len + 1)
+                                          cur_len + 1, window=c.window_size)
         else:
-            o = attn_lib.attention(q, k, v,
-                                   impl=c.attention_impl, causal=True)
+            o = attn_lib.attention(q, k, v, impl=c.attention_impl, causal=True,
+                                   window=c.window_size, block_q=c.attn_block_q)
             if mode == "prefill":
                 new_kv = (k, v)
         out = torch.einsum("bshe,hed->bsd", o, p["wo"])
@@ -263,8 +272,9 @@ class TransformerLM(nn.Module):
         new_kv = None
         if mode == "decode":
             ckv_c, kpe_c = cache
-            _cache_write(ckv_c, cur_len, ckv)
-            _cache_write(kpe_c, cur_len, k_pe)
+            slot = cache_slot(cur_len, ckv_c.shape[1])
+            _cache_write(ckv_c, slot, ckv)
+            _cache_write(kpe_c, slot, k_pe)
             o = attn_lib.mla_absorbed_decode(
                 q_nope[:, 0], q_pe[:, 0], ckv_c.to(self.adt),
                 kpe_c.to(self.adt), p["kv_b_k"], p["kv_b_v"], cur_len + 1,
@@ -306,15 +316,8 @@ class TransformerLM(nn.Module):
         return [(group, moe) for group, moe in GROUPS if group in params]
 
     def _layers(self, params, group: str):
-        """Each layer's parameters in `group`, taken with one ``unbind(0)``
-        a stacked leaf: its backward writes the leaf's gradient once, where
-        one ``t[i]`` a layer would write a zeroed whole-leaf gradient a
-        layer."""
-        stacked = params[group]
-        parts = {path: t.unbind(0) for path, t in tree_paths(stacked)}
-        n = len(next(iter(parts.values())))
-        for i in range(n):
-            yield i, tree_map_with_path(lambda path, _: parts[path][i], stacked)
+        """(index, parameters) of each layer in `group` (`unstack`)."""
+        return enumerate(unstack(params[group]))
 
     # ------------------------------------------------------------------
     # Embedding / head
@@ -420,15 +423,21 @@ class TransformerLM(nn.Module):
     # Serving
     # ------------------------------------------------------------------
     def cache_defs(self, batch: int, seq_len: int) -> dict[str, Any]:
+        """A cache of seq_len slots, or of window_size where the window is
+        shorter (the rotating cache)."""
+        w = self.cfg.window_size
+        return self._cache_defs(batch, min(seq_len, w) if w else seq_len)
+
+    def _cache_defs(self, batch: int, S: int) -> dict[str, Any]:
         c = self.cfg
         dt = c.kv_cache_dtype
         if c.use_mla:
-            per = (pdef((batch, seq_len, c.kv_lora_rank), ("batch", "seq_kv", "kv_lora"), dt, "zeros"),
-                   pdef((batch, seq_len, c.qk_rope_head_dim), ("batch", "seq_kv", "rope"), dt, "zeros"))
+            per = (pdef((batch, S, c.kv_lora_rank), ("batch", "seq_kv", "kv_lora"), dt, "zeros"),
+                   pdef((batch, S, c.qk_rope_head_dim), ("batch", "seq_kv", "rope"), dt, "zeros"))
         else:
             g, e = c.num_kv_heads, c.resolved_head_dim
-            per = (pdef((batch, seq_len, g, e), ("batch", None, "kv_heads", "head_dim"), dt, "zeros"),
-                   pdef((batch, seq_len, g, e), ("batch", None, "kv_heads", "head_dim"), dt, "zeros"))
+            per = (pdef((batch, S, g, e), ("batch", None, "kv_heads", "head_dim"), dt, "zeros"),
+                   pdef((batch, S, g, e), ("batch", None, "kv_heads", "head_dim"), dt, "zeros"))
         defs: dict[str, Any] = {group: stack_defs(per, n) for group, n
                                 in self._group_sizes().items() if n}
         defs["cur_len"] = pdef((), (), "int32", "zeros")
@@ -445,16 +454,27 @@ class TransformerLM(nn.Module):
         (L, b, n + margin, qk_rope_head_dim); n is the prompt's positions
         (patches included; the margin is decode headroom: without it the
         first generated token's kv would overwrite the last prompt
-        position), and cur_len = n as a 0-dim int32 tensor."""
+        position), and cur_len = n as a 0-dim int32 tensor.
+
+        With a window shorter than n the cache is the last window_size
+        positions, in slots 0... (no margin), and decode writes slot
+        cur_len % window_size: the JAX package's rotating cache. It
+        agrees with a longer prefill only where n is a multiple of the
+        window (otherwise decode evicts a position other than the
+        oldest); a shorter prompt keeps n + margin slots and attends to
+        the slots below window_size (ROADMAP, known behaviour 14)."""
         x, _ = self._embed_inputs(params, batch)
         b, seq = x.shape[:2]
         positions = torch.arange(seq, device=x.device)[None]
-        cache = init_params(self.cache_defs(b, seq + margin), 0, x.device)
+        w = self.cfg.window_size
+        keep = w if w and w < seq else seq
+        cache = init_params(self._cache_defs(b, keep if keep < seq else seq + margin),
+                            0, x.device)
         for group, moe in self._groups(params):
             for i, p in self._layers(params, group):
                 x, kv, _ = self._block(p, x, positions, moe, mode="prefill")
                 for buf, t in zip(cache[group], kv):
-                    buf[i, :, :seq] = cache_cast(t, buf.dtype)
+                    buf[i, :, :keep] = cache_cast(t[:, seq - keep:], buf.dtype)
         h = rms_norm(x[:, -1:], params["final_norm"], self.cfg.norm_eps)
         cache["cur_len"].fill_(seq)
         return self._last_logits(params, h), cache

@@ -27,10 +27,13 @@ print(len(names), bad)
 print(" ".join(names))
 sys.exit(1 if bad else 0)
 """
-# the LM families' modules: every config the port serves and the MoE layer
+# the LM families' modules: every config the port serves, the MoE layer
+# and the recurrent models
 FAMILY_MODULES = {f"repro_torch.configs.{m}" for m in (
     "dbrx_132b", "deepseek_7b", "deepseek_v3_671b", "musicgen_large",
-    "pixtral_12b", "qwen3_8b", "yi_34b", "yi_6b")} | {"repro_torch.models.moe"}
+    "pixtral_12b", "qwen3_8b", "recurrentgemma_9b", "xlstm_125m", "yi_34b",
+    "yi_6b")} | {f"repro_torch.models.{m}" for m in ("moe", "recurrent",
+                                                    "xlstm")}
 
 
 def _env():
@@ -44,7 +47,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     count, _, names = out.stdout.partition("\n")
-    assert int(count.split()[0]) >= 59               # every module was imported
+    assert int(count.split()[0]) >= 63               # every module was imported
     assert FAMILY_MODULES <= set(names.split())
 
 

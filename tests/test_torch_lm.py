@@ -200,14 +200,20 @@ def test_entry_points_default_to_cuda(lm):
 
 
 def test_unported_archs_raise():
-    assert list_archs() == ["dbrx-132b", "deepseek-7b", "deepseek-v3-671b",
-                            "musicgen-large", "pixtral-12b", "qwen3-8b",
-                            "yi-34b", "yi-6b"]
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("recurrentgemma-9b")
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        build_model(dataclasses.replace(get_config("yi-6b"), window_size=32),
-                    "cpu")
+    """Every architecture of the JAX package is ported: the registries
+    agree, only an unknown name raises, and a windowed TransformerLM
+    builds."""
+    from repro.configs import list_archs as j_list_archs
+    from repro_torch.configs.base import NOT_PORTED
+    assert NOT_PORTED == ()
+    assert list_archs() == j_list_archs()
+    for arch in list_archs():
+        assert build_model(get_config(arch), "cpu").cfg.name == arch
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
+    model = build_model(dataclasses.replace(get_config("yi-6b"),
+                                            window_size=32), "cpu")
+    assert model.cache_defs(1, 4096)["dense_layers"][0].shape[2] == 32
 
 
 def test_out_of_range_token_ids():
