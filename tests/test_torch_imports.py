@@ -53,7 +53,8 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
                                         [*PORT.rglob("*.py"),
-                                         ROOT / "chip_smoke.py"]))
+                                         ROOT / "chip_smoke.py",
+                                         ROOT / "examples" / "torch_train_lm.py"]))
 def test_no_jax_import_statement(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
