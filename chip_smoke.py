@@ -197,7 +197,33 @@ Phases, in order; any failure exits non-zero and prints no result line:
                kernel launched, and one SGD step (stochastically rounded
                to bf16) lowering the loss by at least half its
                first-order decrease;
-  15. summary — the kernels line, the memory line, the card line, and the
+  15. sharding and launch — qwen3-8b (vocab 151,936, d 4096, bf16,
+               weights from the seed): (a) its embedding table (1.24 GB)
+               looked up vocab-sharded by mapsin_embed over LocalMesh(8) on
+               `model` for 4 x 4000 ids, equal to the dense gather bit for
+               bit, both timed, the lookup's extra memory; (b) 4 of its
+               layers, a 4 x 4000 prefill with a data 1 x model 8 mesh and
+               its rules and one without: logits equal bit for bit, one
+               wgmma flash launch a layer each, no graph recorded under
+               no_grad, the sharded lookup run (LocalMesh runs on `model`)
+               in the mesh run and not in the other; (c) 2 layers through
+               Trainer.run for 3 steps at 2 x 4096 with the mesh and rules
+               and without: every step's metrics and the final parameters
+               equal bit for bit, step ms of both, the flash launches (2 a
+               layer a step), the sharded lookup run on the mesh alone; (d) (c)'s
+               parameters saved and loaded onto the shardings of
+               make_rules(make_mesh_for(8, model_par=4)): every block of
+               its sharding's shape, shard 0's bytes equal to
+               sharded_bytes_per_device, the rebuilt tree and a save from
+               the mesh loaded with no mesh equal bit for bit, GB/s each
+               way; (e) `python -m repro_torch.launch.dryrun --all --mesh
+               both` (FlopCounterMode on meta tensors, one process a host
+               core) and `python -m repro_torch.launch.roofline` on its
+               reports: cells counted, seconds, each cell's counted flops
+               over the cost model's, and the cost
+               model's one-GPU terms for phase 13's yi-6b beside its
+               measured step;
+  16. summary — the kernels line, the memory line, the card line, and the
                result line as the last line.
 It needs a CUDA device and the repository's src/ beside it.
 """
@@ -4551,6 +4577,407 @@ def run_lm_family_training(torch, args, card: str, failures: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: sharding and launch
+# ---------------------------------------------------------------------------
+
+SHARD_ARCH = "qwen3-8b"        # embedding_impl="mapsin", vocab 151,936
+EMBED_SHARDS = 8               # (a): LocalMesh(8) on `model`
+MESH_PREFILL_LAYERS = 4        # (b): 4 x 4000 positions (LM_BATCH, LM_PROMPT)
+MESH_TRAIN_LAYERS, MESH_TRAIN_ROWS, MESH_TRAIN_SEQ = 2, 2, 4096   # (c)
+MESH_TRAIN_STEPS = 3
+ELASTIC_SHARDS, ELASTIC_MODEL = 8, 4   # (d): make_mesh_for(8, model_par=4)
+
+
+def trees_equal(torch, a, b) -> list:
+    """The paths at which two trees of tensors differ (bit for bit)."""
+    from repro_torch.common import tree_paths
+    return ["/".join(p) for (p, x), (_, y) in zip(tree_paths(a), tree_paths(b))
+            if not torch.equal(x, y)]
+
+
+class model_axis_runs:
+    """Counts, while open, the LocalMesh runs over a `model` axis: the
+    shard bodies of mapsin_embed's vocab-sharded lookup (``calls``)."""
+
+    def __enter__(self):
+        from repro_torch.core import collectives
+
+        self.calls, real = 0, collectives.LocalMesh.run
+        self._cls, self._real = collectives.LocalMesh, real
+
+        def run(mesh, body):
+            self.calls += "model" in mesh.axis_names
+            return real(mesh, body)
+        collectives.LocalMesh.run = run
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.run = self._real
+
+
+def check_mapsin_embed(torch, args, card: str, failures: list) -> dict:
+    """(a): qwen3-8b's table over LocalMesh(8) on `model` against the dense
+    gather, bit for bit; both timed from the host to a sync; the lookup's
+    memory beyond its output."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import LocalMesh
+    from repro_torch.models.embedding import dense_embed, mapsin_embed
+
+    cfg = get_config(SHARD_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    table = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                        device="cuda").mul_(0.02).to(torch.bfloat16)
+    rng = np.random.RandomState(args.seed)
+    tok = torch.as_tensor(rng.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)),
+                          dtype=torch.int32, device="cuda")
+    mesh = LocalMesh(EMBED_SHARDS, "cuda", axis="model")
+    with torch.no_grad():
+        dense = dense_embed(table, tok)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = mapsin_embed(table, tok, mesh)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base - \
+            got.numel() * got.element_size()
+        equal = torch.equal(got, dense)
+        del got
+        ms_mapsin = wall_ms(torch, lambda: mapsin_embed(table, tok, mesh))
+        ms_dense = wall_ms(torch, lambda: dense_embed(table, tok))
+    tbytes = table.numel() * table.element_size()
+    log(f"[shard] (a) mapsin_embed: {cfg.vocab_size} x {cfg.d_model} bf16 "
+        f"table ({tbytes} bytes) over LocalMesh({EMBED_SHARDS}) on model, "
+        f"{LM_BATCH} x {LM_PROMPT} ids: equal to dense_embed {equal}; "
+        f"{ms_mapsin:.3f} ms against the dense gather's {ms_dense:.3f} ms "
+        f"(host clock to a sync, median of 5); memory beyond the output "
+        f"{extra} bytes ({extra / 2 ** 30:.3f} GiB); {card}")
+    if not equal:
+        failures.append("sharding (a): mapsin_embed differs from dense_embed")
+    del table, dense
+    return dict(ms=ms_mapsin, dense_ms=ms_dense, extra_bytes=extra)
+
+
+def check_mesh_prefill(torch, args, card: str, failures: list) -> dict:
+    """(b): qwen3-8b cut to 4 layers, one 4 x 4000 prefill with the mesh
+    and rules and one without, on the same weights (the embedding table
+    flagged requires_grad, so that a lookup outside no_grad would record a
+    graph): logits equal bit for bit, one wgmma flash launch a layer each
+    (the counts to 0 just before each run, read just after), no graph, and
+    the sharded lookup run in the mesh run alone."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import build_model, make_prefill_step
+    from repro_torch.sharding import make_rules
+
+    cfg = dataclasses.replace(get_config(SHARD_ARCH),
+                              num_layers=MESH_PREFILL_LAYERS)
+    mesh = make_mesh_for(EMBED_SHARDS, model_par=EMBED_SHARDS, device="cuda")
+    rules = make_rules(mesh, cfg)
+    plain = build_model(cfg, device="cuda")
+    meshed = build_model(cfg, mesh, rules)
+    params = plain.init_params(args.seed)
+    params["embed"].requires_grad_(True)
+    rng = np.random.RandomState(args.seed)
+    batch = {"tokens": torch.as_tensor(
+        rng.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)),
+        dtype=torch.int32, device="cuda")}
+    out, launches, sharded = {}, {}, {}
+    with torch.no_grad():
+        for name, model in (("mesh", meshed), ("plain", plain)):
+            step = make_prefill_step(model)
+            torch.cuda.synchronize()
+            ops.reset_launches()         # the main path: counts to 0 just before
+            with model_axis_runs() as runs:
+                logits, cache = step(params, batch)
+            torch.cuda.synchronize()
+            launches[name] = (ops.launches["flash_attention"],
+                              dict(ops.flash_attention_variants))
+            sharded[name] = runs.calls
+            out[name] = logits
+            del cache
+        equal = torch.equal(out["mesh"], out["plain"])
+        graph = out["mesh"].grad_fn is not None or out["mesh"].requires_grad
+        ms = {name: wall_ms(torch, lambda m=m: make_prefill_step(m)(params, batch),
+                            runs=3)
+              for name, m in (("plain", plain), ("mesh", meshed))}
+    want = (MESH_PREFILL_LAYERS, {"wgmma": MESH_PREFILL_LAYERS, "simt": 0})
+    log(f"[shard] (b) prefill {SHARD_ARCH} ({MESH_PREFILL_LAYERS} of "
+        f"{get_config(SHARD_ARCH).num_layers} layers, {LM_BATCH} x "
+        f"{LM_PROMPT}) with {mesh} and rules (kv_mode {rules.kv_mode}) and "
+        f"without: logits equal bit for bit {equal}; flash_attention "
+        f"launches mesh {launches['mesh']}, plain {launches['plain']}; "
+        f"sharded lookups (LocalMesh runs on model) mesh {sharded['mesh']}, "
+        f"plain {sharded['plain']}; graph "
+        f"recorded under no_grad {graph}; {ms['mesh']:.3f} ms against "
+        f"{ms['plain']:.3f} ms (host clock to a sync, median of 3); {card}")
+    if not equal:
+        failures.append("sharding (b): the mesh prefill's logits differ")
+    if launches["mesh"] != want or launches["plain"] != want:
+        failures.append(f"sharding (b): flash_attention launches {launches}, "
+                        f"want {want} each")
+    if graph:
+        failures.append("sharding (b): the mesh prefill recorded a graph "
+                        "under no_grad")
+    if sharded["mesh"] == 0 or sharded["plain"] != 0:
+        failures.append(f"sharding (b): sharded lookups {sharded}, want more "
+                        f"than 0 on the mesh and 0 without")
+    del params, out
+    torch.cuda.empty_cache()
+    return dict(launches=launches["mesh"][0] + launches["plain"][0], ms=ms)
+
+
+def check_mesh_training(torch, args, card: str, failures: list) -> dict:
+    """(c): qwen3-8b cut to 2 layers, 2 x 4096, through Trainer.run for 3
+    steps with the mesh and rules and without: every step's metrics and the
+    parameters after the last equal bit for bit under the Trainer's
+    deterministic algorithms; step ms (median of steps 1-2) of both; the
+    flash launches and sharded lookups of each run (counts to 0 just
+    before it, read just after). Returns the mesh run's parameters for
+    (d)."""
+    import dataclasses
+    import statistics
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.optim import OptConfig
+    from repro_torch.runtime import Trainer
+    from repro_torch.sharding import make_rules
+
+    cfg = dataclasses.replace(get_config(SHARD_ARCH),
+                              num_layers=MESH_TRAIN_LAYERS)
+    shape = ShapeConfig("train", MESH_TRAIN_SEQ, MESH_TRAIN_ROWS, "train")
+    mesh = make_mesh_for(EMBED_SHARDS, model_par=EMBED_SHARDS, device="cuda")
+    rules = make_rules(mesh, cfg, shape)
+    runs = {}
+    for name, kw in (("mesh", dict(mesh=mesh, rules=rules)), ("plain", {})):
+        metrics: list = []
+        with tempfile.TemporaryDirectory() as workdir:
+            trainer = Trainer(cfg, shape, workdir, OptConfig(warmup_steps=10),
+                              ckpt_every=MESH_TRAIN_STEPS + 1, seed=args.seed,
+                              **kw)
+            torch.cuda.synchronize()
+            ops.reset_launches()         # the main path: counts to 0 just before
+            with model_axis_runs() as sharded:
+                params, _, _ = trainer.run(
+                    MESH_TRAIN_STEPS, hook=lambda s, m: metrics.append(
+                        {k: v.clone() for k, v in m.items()}))
+            launches = (ops.launches["flash_attention"],
+                        dict(ops.flash_attention_variants))
+            step_ms = statistics.median(trainer.watchdog._times[1:]) * 1e3
+        runs[name] = dict(params=params, metrics=metrics, launches=launches,
+                          step_ms=step_ms, sharded=sharded.calls)
+        del trainer
+        torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    differ = trees_equal(torch, runs["mesh"]["params"], runs["plain"]["params"])
+    metric_differ = [f"step {i} {k}" for i, (a, b) in enumerate(zip(
+        runs["mesh"]["metrics"], runs["plain"]["metrics"]))
+        for k in a if not torch.equal(a[k], b[k])]
+    n = 2 * MESH_TRAIN_LAYERS * MESH_TRAIN_STEPS
+    want = (n, {"wgmma": n, "simt": 0})
+    tokens = MESH_TRAIN_ROWS * MESH_TRAIN_SEQ
+    log(f"[shard] (c) Trainer.run({MESH_TRAIN_STEPS}) {SHARD_ARCH} "
+        f"({MESH_TRAIN_LAYERS} layers, {MESH_TRAIN_ROWS} x {MESH_TRAIN_SEQ}) "
+        f"with {mesh} and rules and without: losses "
+        + ", ".join(f"{float(m['loss']):.6f}" for m in runs["mesh"]["metrics"])
+        + " / " + ", ".join(f"{float(m['loss']):.6f}"
+                            for m in runs["plain"]["metrics"])
+        + f"; grad norms " + ", ".join(f"{float(m['grad_norm']):.6f}"
+                                       for m in runs["mesh"]["metrics"])
+        + f"; metrics that differ: {metric_differ or 'none'}; parameter "
+        f"leaves that differ after step {MESH_TRAIN_STEPS}: {differ or 'none'}"
+        f"; step {runs['mesh']['step_ms']:.3f} ms on the mesh against "
+        f"{runs['plain']['step_ms']:.3f} ms "
+        f"({tokens / runs['mesh']['step_ms'] * 1e3:.1f} / "
+        f"{tokens / runs['plain']['step_ms'] * 1e3:.1f} tokens/s); "
+        f"flash_attention launches {runs['mesh']['launches']} / "
+        f"{runs['plain']['launches']}; sharded lookups (LocalMesh runs on "
+        f"model) {runs['mesh']['sharded']} / {runs['plain']['sharded']}; "
+        f"{card}")
+    if runs["mesh"]["sharded"] == 0 or runs["plain"]["sharded"] != 0:
+        failures.append(f"sharding (c): sharded lookups "
+                        f"{runs['mesh']['sharded']} / "
+                        f"{runs['plain']['sharded']}, want more than 0 on "
+                        f"the mesh and 0 without")
+    if differ or metric_differ or len(runs["mesh"]["metrics"]) != MESH_TRAIN_STEPS:
+        failures.append(f"sharding (c): the mesh Trainer differs from the "
+                        f"meshless one: metrics {metric_differ}, leaves {differ}")
+    if runs["mesh"]["launches"] != want or runs["plain"]["launches"] != want:
+        failures.append(f"sharding (c): flash_attention launches "
+                        f"{runs['mesh']['launches']} / "
+                        f"{runs['plain']['launches']}, want {want} each")
+    params = runs["mesh"]["params"]
+    del runs
+    torch.cuda.empty_cache()
+    return dict(cfg=cfg, params=params, launches=2 * n)
+
+
+def check_elastic_restore(torch, cfg, params, card: str, failures: list) -> dict:
+    """(d): (c)'s parameters saved, loaded onto the shardings of
+    make_rules(make_mesh_for(8, model_par=4), cfg): every block of its
+    sharding's shape, shard 0's bytes equal to sharded_bytes_per_device,
+    the rebuilt tree equal to the saved one; saved back from the mesh and
+    loaded with no mesh, equal again; GB/s each way."""
+    import os
+    import tempfile
+
+    from repro_torch.checkpoint import load, save
+    from repro_torch.common import param_bytes, tree_paths
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import build_model
+    from repro_torch.models.params import (abstract_tree,
+                                           sharded_bytes_per_device,
+                                           sharding_tree)
+    from repro_torch.sharding import make_rules
+
+    mesh = make_mesh_for(ELASTIC_SHARDS, model_par=ELASTIC_MODEL, device="cuda")
+    rules = make_rules(mesh, cfg)
+    defs = build_model(cfg, device="cuda").param_defs()
+    nbytes = param_bytes(params)
+    with tempfile.TemporaryDirectory() as root:
+        path = save(os.path.join(root, "a"), MESH_TRAIN_STEPS, {"params": params})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, out = load(path, {"params": abstract_tree(defs)},
+                      {"params": sharding_tree(defs, rules)})
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        sharded = out["params"]
+        bad_blocks = [
+            "/".join(p) for p, st in tree_paths(sharded)
+            if len(st.blocks) != mesh.size or any(
+                tuple(b.shape) != st.sharding.shard_shape(st.shape)
+                for b in st.blocks)]
+        shard0 = sum(st.blocks[0].numel() * st.blocks[0].element_size()
+                     for _, st in tree_paths(sharded))
+        want0 = sharded_bytes_per_device(defs, rules)
+        rebuilt = trees_equal(torch, {p: st.full() for p, st in
+                                      tree_paths(sharded)},
+                              dict(tree_paths(params)))
+        t0 = time.perf_counter()
+        back_path = save(os.path.join(root, "b"), MESH_TRAIN_STEPS,
+                         {"params": sharded})
+        t_save = time.perf_counter() - t0
+        del out, sharded
+        _, back = load(back_path, {"params": params}, device="cuda")
+        round_trip = trees_equal(torch, back["params"], params)
+    log(f"[shard] (d) elastic restore of (c)'s {nbytes} bytes onto {mesh} "
+        f"(rules kv_mode {rules.kv_mode}, fsdp over data): blocks not of "
+        f"their sharding's shape {bad_blocks or 'none'}; shard 0 holds "
+        f"{shard0} bytes, sharded_bytes_per_device {want0}; rebuilt tree "
+        f"differs at {rebuilt or 'nothing'}; saved back from the mesh and "
+        f"loaded with none, differs at {round_trip or 'nothing'}; load onto "
+        f"the mesh {t_load:.3f} s ({nbytes / t_load / 1e9:.3f} GB/s), save "
+        f"from the mesh {t_save:.3f} s ({nbytes / t_save / 1e9:.3f} GB/s); "
+        f"{card}")
+    if bad_blocks or shard0 != want0 or rebuilt or round_trip:
+        failures.append(f"sharding (d): blocks {bad_blocks}, shard 0 "
+                        f"{shard0} != {want0}, rebuilt {rebuilt}, round trip "
+                        f"{round_trip}")
+    return dict(load_gbps=nbytes / t_load / 1e9, save_gbps=nbytes / t_save / 1e9)
+
+
+def run_dryrun_roofline(torch, card: str, train_step_ms, failures: list) -> dict:
+    """(e): `python -m repro_torch.launch.dryrun --all --mesh both` then
+    `python -m repro_torch.launch.roofline` on its reports: cells counted,
+    seconds, each cell's counted flops over the cost model's, and the cost
+    model's one-GPU terms for phase 13's yi-6b run beside its measured
+    step."""
+    import dataclasses
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.costmodel import cost_cell
+
+    out_dir = Path(__file__).resolve().parent / "build" / "dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    dry = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--mesh",
+         "both", "--out", str(out_dir)],
+        env=env, capture_output=True, text=True, timeout=900)
+    t_dry = time.perf_counter() - t0
+    roof = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.roofline", "--dir",
+         str(out_dir), "--out", str(out_dir.parent / "roofline.json")],
+        env=env, capture_output=True, text=True, timeout=300)
+    reports = [json.loads(p.read_text()) for p in sorted(out_dir.glob("*.json"))]
+    summary = (dry.stdout.strip().splitlines() or [""])[-1]
+    log(f"[launch] (e) dryrun --all --mesh both: rc {dry.returncode}, "
+        f"{t_dry:.1f} s, {len(reports)} cell reports ({summary}); host work "
+        f"only, on meta tensors; {card}")
+    for r in reports:
+        log(f"[launch] {r['arch']} {r['shape']} {r['mesh']}: counted "
+            f"{r['counted_flops']:.6e} flops (plain attention), cost "
+            f"model {r['cost_model']['flops']:.6e}, counted/model "
+            f"{r['counted_flops'] / r['cost_model']['flops']:.4f}; "
+            f"{r['count_s']:.2f} s")
+    log("[launch] roofline: rc " + str(roof.returncode) + "\n"
+        + roof.stdout.strip())
+    if dry.returncode != 0 or roof.returncode != 0 or not reports:
+        failures.append(f"launch (e): dryrun rc {dry.returncode}, roofline rc "
+                        f"{roof.returncode}\n{dry.stdout[-3000:]}\n"
+                        f"{dry.stderr[-3000:]}\n{roof.stderr[-3000:]}")
+    cfg = dataclasses.replace(get_config("yi-6b"), num_layers=TRAIN_LAYERS)
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_ROWS, "train")
+    terms = cost_cell(cfg, shape, {"data": 1}).terms(1)
+    measured = (f"{train_step_ms:.3f} ms" if train_step_ms is not None
+                else "not measured (phase 13 failed)")
+    log(f"[launch] cost model, one GPU ({{'data': 1}}), phase 13's yi-6b "
+        f"({TRAIN_LAYERS} layers, {TRAIN_ROWS} x {TRAIN_SEQ}, remat "
+        f"{cfg.remat_policy!r}): compute {terms['compute_s'] * 1e3:.3f} ms, "
+        f"memory {terms['memory_s'] * 1e3:.3f} ms, collective "
+        f"{terms['collective_s'] * 1e3:.3f} ms, dominant {terms['dominant']}, "
+        f"step bound {terms['step_s'] * 1e3:.3f} ms; measured step "
+        f"{measured}; {card}")
+    return dict(seconds=t_dry, counted=len(reports), terms=terms)
+
+
+def run_sharding_launch(torch, args, card: str, train_step_ms,
+                        failures: list) -> dict:
+    """Phase 15, (a)-(e), each reporting its own failure. Returns the flash
+    launches of (b) and (c)'s main-path runs."""
+    launches = 0
+    steps = (("(a) mapsin_embed", lambda: check_mapsin_embed(
+                 torch, args, card, failures)),
+             ("(b) mesh prefill", lambda: check_mesh_prefill(
+                 torch, args, card, failures)))
+    for what, fn in steps:
+        try:
+            launches += fn().get("launches", 0)
+        except Exception:
+            failures.append(f"phase sharding {what}:\n{traceback.format_exc()}")
+        torch.cuda.empty_cache()
+    try:
+        train = check_mesh_training(torch, args, card, failures)
+        launches += train["launches"]
+        check_elastic_restore(torch, train["cfg"], train["params"], card,
+                              failures)
+        del train
+    except Exception:
+        failures.append(f"phase sharding (c)/(d):\n{traceback.format_exc()}")
+    torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    try:
+        run_dryrun_roofline(torch, card, train_step_ms, failures)
+    except Exception:
+        failures.append(f"phase launch (e):\n{traceback.format_exc()}")
+    return dict(launches=launches)
+
+
 def phase_done(name: str, t0: float) -> float:
     now = time.perf_counter()
     log(f"[phase] {name}: {now - t0:.1f} s")
@@ -4761,8 +5188,10 @@ def main() -> int:
 
     # training at full width, after serving's weights are freed
     torch.cuda.empty_cache()
+    train_step_ms = None
     try:
         train = run_lm_training(torch, args, card, failures)
+        train_step_ms = train["train_step_ms"]
         k = next((k for k in kernels if k["name"] == "flash_attention"), None)
         if k is None:
             failures.append("phase LM training: no flash_attention record "
@@ -4813,7 +5242,22 @@ def main() -> int:
                 failures.append(f"flash_attention: mismatches against the "
                                 f"plain version at {a}'s training shape")
     fam_train_peak = max((f["peak"] for f in fam_train.values()), default=0)
-    phase_done("LM family training", t_phase)
+    t_phase = phase_done("LM family training", t_phase)
+
+    # sharding and launch, after the families' training state is freed
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    shard = {"launches": 0}
+    try:
+        shard = run_sharding_launch(torch, args, card, train_step_ms, failures)
+    except Exception:
+        failures.append(f"phase sharding and launch:\n{traceback.format_exc()}")
+    k = next((k for k in kernels if k["name"] == "flash_attention"), None)
+    if k is not None:
+        k["sharding_launches"] = shard["launches"]
+        k["launches"] += shard["launches"]
+    shard_peak = torch.cuda.max_memory_allocated()
+    phase_done("sharding and launch", t_phase)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"memory: max_memory_allocated {peak} bytes "
@@ -4823,7 +5267,9 @@ def main() -> int:
         f"bytes ({mla_peak / 2 ** 30:.2f} GiB) over LM MLA; {rec_peak} bytes "
         f"({rec_peak / 2 ** 30:.2f} GiB) over LM recurrent; {train_peak} bytes "
         f"({train_peak / 2 ** 30:.2f} GiB) over LM training; {fam_train_peak} "
-        f"bytes ({fam_train_peak / 2 ** 30:.2f} GiB) over LM family training")
+        f"bytes ({fam_train_peak / 2 ** 30:.2f} GiB) over LM family training; "
+        f"{shard_peak} bytes ({shard_peak / 2 ** 30:.2f} GiB) over sharding "
+        f"and launch")
     if failures:
         for f in failures:
             print(f"FAILED: {f}", file=sys.stderr)

@@ -5,9 +5,12 @@ Format: one directory per step, ``step_%08d``, containing
 ``arrays.npz`` (leaves keyed by '/'-joined path, under the tree's name).
 numpy has no bfloat16, so a bf16 leaf is stored as its uint16 bits under
 the key + ``::bf16``: the JAX package's format, so a checkpoint written by
-either package loads in the other. Arrays are saved with their whole
-shapes; ``load`` places every leaf on one device (the JAX package's
-elastic restore onto a mesh belongs to the sharding slice).
+either package loads in the other. Arrays are saved with their *global*
+shapes, so restore is mesh-agnostic: ``load`` places every leaf on one
+device, or, given shardings, cuts it into one block a position of the
+*target* mesh (``sharding.ShardedTensor``): the elastic restore (train on
+N shards, resume on M). ``save`` takes such sharded leaves and writes
+their global tensors, so a tree saved from a mesh loads with none.
 
 Writes are atomic (tmp dir + rename) and optionally asynchronous (snapshot
 to the host synchronously, file I/O on a writer thread) so the train loop
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.common import tree_map_with_path, tree_paths
+from repro_torch.sharding.rules import ShardedTensor
 
 MANIFEST = "manifest.json"
 ARRAYS = "arrays.npz"
@@ -35,6 +39,8 @@ def _flatten(tree: Any) -> dict[str, np.ndarray]:
     out = {}
     for path, leaf in tree_paths(tree):
         key = "/".join(path)
+        if isinstance(leaf, ShardedTensor):
+            leaf = leaf.full()
         if isinstance(leaf, torch.Tensor):
             leaf = leaf.detach().cpu()
             if leaf.dtype == torch.bfloat16:
@@ -47,8 +53,8 @@ def _flatten(tree: Any) -> dict[str, np.ndarray]:
 
 def save(workdir: str, step: int, trees: dict[str, Any],
          keep: int = 3) -> str:
-    """trees: e.g. {"params": ..., "opt_state": ...} of tensors or numpy
-    arrays. Returns the checkpoint's path."""
+    """trees: e.g. {"params": ..., "opt_state": ...} of tensors, sharded
+    tensors or numpy arrays. Returns the checkpoint's path."""
     os.makedirs(workdir, exist_ok=True)
     final = os.path.join(workdir, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -90,10 +96,16 @@ def latest(workdir: str) -> str | None:
 
 
 def load(path: str, templates: dict[str, Any],
+         shardings: dict[str, Any] | None = None,
          device=None) -> tuple[int, dict[str, Any]]:
-    """templates: same-structure trees of tensors, whose dtypes the loaded
-    leaves take. Each leaf goes to `device` (default: its template's).
-    Returns (step, trees)."""
+    """templates: same-structure trees of tensors (``meta`` ones will do
+    with `shardings`), whose shapes the checkpoint's must match. Without
+    `shardings` each leaf takes its template's dtype and goes to `device`
+    (default: its template's). `shardings`: same-structure trees of
+    ``NamedSharding`` for re-placement on a (possibly different) mesh, the
+    elastic restore: each leaf becomes a ``ShardedTensor`` on the mesh's
+    device in the checkpoint's own dtype (the JAX package's
+    ``device_put(arr, sharding)`` casts nothing). Returns (step, trees)."""
     with open(os.path.join(path, MANIFEST)) as f:
         spec = json.load(f)
     out: dict[str, Any] = {}
@@ -109,9 +121,17 @@ def load(path: str, templates: dict[str, Any],
                     raise ValueError(f"{key}: checkpoint shape "
                                      f"{tuple(t.shape)} != template "
                                      f"{tuple(leaf.shape)}")
+                if shardings is not None:
+                    return _lookup(shardings[name], p).shard(t)
                 return t.to(device=device or leaf.device, dtype=leaf.dtype)
             out[name] = tree_map_with_path(fill, template)
     return spec["step"], out
+
+
+def _lookup(tree: Any, path: tuple):
+    for p in path:
+        tree = tree[p] if isinstance(tree, dict) else tree[int(p)]
+    return tree
 
 
 class AsyncCheckpointer:
@@ -128,7 +148,8 @@ class AsyncCheckpointer:
         self.wait()
         # a copy: the train step updates the device (or CPU) tensors in place
         host = {name: tree_map_with_path(
-            lambda _, t: t.detach().to("cpu", copy=True), tree)
+            lambda _, t: (t.full() if isinstance(t, ShardedTensor) else t
+                          ).detach().to("cpu", copy=True), tree)
             for name, tree in trees.items()}
 
         def _write():

@@ -1,8 +1,12 @@
 """Shared small utilities."""
 from __future__ import annotations
 
+import dataclasses
+import functools
+import json
 from typing import Any, Iterator
 
+import numpy as np
 import torch
 
 # Canonical dtype registry (string names keep configs JSON-serializable).
@@ -38,6 +42,26 @@ def cache_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     bits = torch.where(nan, 0, x).to(dtype).view(torch.uint8)
     nan_bits = torch.where(torch.signbit(x), 0xFF, 0x7F).to(torch.uint8)
     return torch.where(nan, nan_bits, bits).view(dtype)
+
+
+def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with ``jnp.einsum``'s dtype promotion: operands of
+    different dtypes (bfloat16 weights with float32 activations) are cast
+    up, exactly, to their common type, where torch raises. Operands of one
+    dtype pass through untouched."""
+    dtypes = {o.dtype for o in operands}
+    if len(dtypes) == 1:
+        return torch.einsum(eq, *operands)
+    dt = functools.reduce(torch.promote_types, dtypes)
+    return torch.einsum(eq, *(o.to(dt) for o in operands))
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with ``jnp``'s dtype promotion, as `einsum`."""
+    if a.dtype == b.dtype:
+        return a @ b
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
 
 
 def tree_paths(tree: Any, prefix: tuple = ()) -> Iterator[tuple[tuple, Any]]:
@@ -82,3 +106,28 @@ def resolve_device(device, caller: str) -> torch.device:
 
 def ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def round_up(a: int, b: int) -> int:
+    return ceil_div(a, b) * b
+
+
+class NpEncoder(json.JSONEncoder):
+    """JSON for numpy scalars and arrays and dataclasses (the launch
+    tools' reports)."""
+
+    def default(self, obj):
+        if isinstance(obj, (np.integer,)):
+            return int(obj)
+        if isinstance(obj, (np.floating,)):
+            return float(obj)
+        if isinstance(obj, np.ndarray):
+            return obj.tolist()
+        if dataclasses.is_dataclass(obj):
+            return dataclasses.asdict(obj)
+        return super().default(obj)
+
+
+def dump_json(obj: Any, path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=2, cls=NpEncoder)

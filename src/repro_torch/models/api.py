@@ -19,14 +19,21 @@ from repro_torch.models.xlstm import XLSTMLM
 from repro_torch.optim.adamw import OptConfig, adamw_update
 
 
-def build_model(cfg: ModelConfig, device="cuda"):
+def build_model(cfg: ModelConfig, mesh=None, rules=None, device=None):
     """The model of `cfg`'s family: XLSTMLM (ssm), RecurrentGemmaLM
-    (hybrid) or TransformerLM (the rest)."""
+    (hybrid) or TransformerLM (the rest), as the JAX package's
+    ``build_model(cfg, mesh, rules)``. The model lives on `device`: by
+    default the mesh's, else the card. A device in `mesh`'s place
+    (``build_model(cfg, "cpu")``) is taken as `device`."""
+    if isinstance(mesh, (str, torch.device)):
+        mesh, device = None, mesh
+    if device is None:
+        device = getattr(mesh, "device", None) or "cuda"
     if cfg.family == "ssm":
-        return XLSTMLM(cfg, device)
+        return XLSTMLM(cfg, device, mesh, rules)
     if cfg.family == "hybrid":
-        return RecurrentGemmaLM(cfg, device)
-    return TransformerLM(cfg, device)
+        return RecurrentGemmaLM(cfg, device, mesh, rules)
+    return TransformerLM(cfg, device, mesh, rules)
 
 
 def input_defs(cfg: ModelConfig, shape: ShapeConfig,

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.common import ceil_div
+from repro_torch.common import ceil_div, einsum
 from repro_torch.kernels import ops
 
 NEG = -1e30
@@ -35,8 +35,8 @@ def naive_attention(q, k, v, *, causal=True, window=0, scale=None):
     b, sq, h, eq = q.shape
     g, skv = k.shape[2], k.shape[1]
     scale = scale or eq ** -0.5
-    s = torch.einsum("bqgre,bkge->bgrqk", _split_heads(q, g).float(),
-                     k.float()) * scale
+    s = einsum("bqgre,bkge->bgrqk", _split_heads(q, g).float(),
+               k.float()) * scale
     if causal or window:
         q_pos = torch.arange(sq, device=q.device) + (skv - sq)
         k_pos = torch.arange(skv, device=q.device)
@@ -47,7 +47,7 @@ def naive_attention(q, k, v, *, causal=True, window=0, scale=None):
             masked |= q_pos[:, None] - k_pos[None, :] >= window
         s = s.masked_fill(masked, NEG)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bgrqk,bkgf->bqgrf", p.to(v.dtype), v)
+    o = einsum("bgrqk,bkgf->bqgrf", p.to(v.dtype), v)
     return o.reshape(b, sq, h, v.shape[-1])
 
 
@@ -72,8 +72,8 @@ def local_attention(q, k, v, *, window, block_q=512, scale=None):
         bq = qb.shape[1]
         start = min(max(q_start - window, 0), skv - span)
         kj, vj = k[:, start:start + span], v[:, start:start + span]
-        s = torch.einsum("bqgre,bkge->bgrqk", _split_heads(qb, g).float(),
-                         kj.float()) * scale
+        s = einsum("bqgre,bkge->bgrqk", _split_heads(qb, g).float(),
+                   kj.float()) * scale
         q_pos = q_start + torch.arange(bq, device=q.device)
         k_pos = start + torch.arange(span, device=q.device)
         msk = ((k_pos[None] <= q_pos[:, None])
@@ -81,7 +81,7 @@ def local_attention(q, k, v, *, window, block_q=512, scale=None):
         s = s.masked_fill(~msk, NEG)
         p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * msk
         p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-        o = torch.einsum("bgrqk,bkgf->bqgrf", p.to(v.dtype), vj)
+        o = einsum("bgrqk,bkgf->bqgrf", p.to(v.dtype), vj)
         out[:, q_start:q_start + bq] = o.reshape(b, bq, h, ev)
     return out
 
@@ -100,12 +100,12 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, scale=None):
     g, S = k_cache.shape[2], k_cache.shape[1]
     scale = scale or eq ** -0.5
     qg = q.reshape(b, g, h // g, eq)
-    s = torch.einsum("bgre,bsge->bgrs", qg.float(), k_cache.float()) * scale
+    s = einsum("bgre,bsge->bgrs", qg.float(), k_cache.float()) * scale
     valid = torch.arange(S, device=q.device) < (
         torch.clamp(cur_len, max=window) if window else cur_len)
     s = s.masked_fill(~valid, NEG)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bgrs,bsgf->bgrf", p.to(v_cache.dtype), v_cache)
+    o = einsum("bgrs,bsgf->bgrf", p.to(v_cache.dtype), v_cache)
     return o.reshape(b, 1, h, v_cache.shape[-1])
 
 
@@ -149,15 +149,15 @@ def _flash_q_block(qb, q_start, producer, nk, block_kv, ev, scale):
         kj, vj = producer(j)
         k_pos = j * block_kv + torch.arange(kj.shape[1], device=qb.device)
         msk = k_pos[None, :] <= q_pos[:, None]
-        s = torch.einsum("bqhe,bkhe->bhqk", qf, kj.float()) * scale
+        s = einsum("bqhe,bkhe->bhqk", qf, kj.float()) * scale
         s = s.masked_fill(~msk, NEG)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None]) * msk
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
         # p rounded to the value dtype before p.v, the product in float32
-        pv = torch.einsum("bhqk,bkhf->bhqf", p.to(vj.dtype).float(),
-                          vj.float())
+        pv = einsum("bhqk,bkhf->bhqf", p.to(vj.dtype).float(),
+                    vj.float())
         o = o * alpha[..., None] + pv
         m = m_new
     return o / torch.clamp(l, min=1e-30)[..., None]
@@ -175,17 +175,19 @@ def mla_prefill_attention(q, ckv, k_pe, kv_b_k, kv_b_v, *, scale,
     instead (a masked padding position adds exactly 0), and a kv block
     wholly above a q block's diagonal is skipped: it is masked for every
     row, so its scores are NEG, m stays, alpha = exp(0) = 1 and p = 0, and
-    it adds exactly 0 to l and o. Neither changes a bit."""
+    it adds exactly 0 to l and o. Neither changes a bit. On ``meta``
+    tensors (no values: the dry-run's count) a q block's kv blocks run as
+    one block over the same rows: the same products, one dispatch each."""
     b, sq, h, _ = q.shape
     dv = kv_b_v.shape[-1]
     skv = ckv.shape[1]
     block_q, block_kv = min(block_q, sq), min(block_kv, skv)
 
-    def producer(j):
-        c_j = ckv[:, j * block_kv:(j + 1) * block_kv]
-        pe_j = k_pe[:, j * block_kv:(j + 1) * block_kv]
-        kn = torch.einsum("bkc,chn->bkhn", c_j, kv_b_k)
-        vv = torch.einsum("bkc,chv->bkhv", c_j, kv_b_v)
+    def producer(j, blocks=1):
+        c_j = ckv[:, j * block_kv:(j + blocks) * block_kv]
+        pe_j = k_pe[:, j * block_kv:(j + blocks) * block_kv]
+        kn = einsum("bkc,chn->bkhn", c_j, kv_b_k)
+        vv = einsum("bkc,chv->bkhv", c_j, kv_b_v)
         kk = torch.cat([kn, pe_j[:, :, None, :].expand(
             *kn.shape[:3], pe_j.shape[-1])], dim=-1)
         return kk, vv
@@ -196,7 +198,11 @@ def mla_prefill_attention(q, ckv, k_pe, kv_b_k, kv_b_v, *, scale,
         # the kv blocks that start at or before the block's last row
         nk = min(ceil_div(skv, block_kv),
                  (q_start + qb.shape[1] - 1) // block_kv + 1)
-        o = _flash_q_block(qb, q_start, producer, nk, block_kv, dv, scale)
+        if q.device.type == "meta":
+            o = _flash_q_block(qb, q_start, lambda j, n=nk: producer(0, n), 1,
+                               block_kv, dv, scale)
+        else:
+            o = _flash_q_block(qb, q_start, producer, nk, block_kv, dv, scale)
         out[:, q_start:q_start + block_q] = o.transpose(1, 2).to(ckv.dtype)
     return out
 
@@ -206,7 +212,7 @@ def mla_naive_attention(q, ckv, k_pe, kv_b_k, kv_b_v, *, scale):
     yardstick of ``mla_prefill_attention``: the whole latent up-projected
     to per-head K/V, then ``naive_attention`` with the explicit scale."""
     dn = kv_b_k.shape[-1]
-    kvup = torch.einsum("bsk,khe->bshe", ckv, torch.cat([kv_b_k, kv_b_v], -1))
+    kvup = einsum("bsk,khe->bshe", ckv, torch.cat([kv_b_k, kv_b_v], -1))
     k_nope, v = kvup[..., :dn], kvup[..., dn:]
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(
         *k_nope.shape[:3], k_pe.shape[-1])], dim=-1)
@@ -221,11 +227,11 @@ def mla_absorbed_decode(q_nope, q_pe, ckv_cache, kpe_cache, kv_b_k, kv_b_v,
     q_nope: (b, h, dn), q_pe: (b, h, dr); ckv_cache: (b, S, c); kpe_cache:
     (b, S, dr); cur_len: 0-dim int tensor, the valid positions (this step's
     included), compared on the device. Returns (b, h, dv)."""
-    qc = torch.einsum("bhn,chn->bhc", q_nope, kv_b_k)          # absorb W_UK
-    s = torch.einsum("bhc,bsc->bhs", qc.float(), ckv_cache.float())
-    s = s + torch.einsum("bhr,bsr->bhs", q_pe.float(), kpe_cache.float())
+    qc = einsum("bhn,chn->bhc", q_nope, kv_b_k)          # absorb W_UK
+    s = einsum("bhc,bsc->bhs", qc.float(), ckv_cache.float())
+    s = s + einsum("bhr,bsr->bhs", q_pe.float(), kpe_cache.float())
     s = s * scale
     valid = torch.arange(ckv_cache.shape[1], device=s.device) < cur_len
     p = torch.softmax(s.masked_fill(~valid, NEG), dim=-1)
-    oc = torch.einsum("bhs,bsc->bhc", p.to(ckv_cache.dtype), ckv_cache)
-    return torch.einsum("bhc,chv->bhv", oc, kv_b_v)            # absorb W_UV
+    oc = einsum("bhs,bsc->bhc", p.to(ckv_cache.dtype), ckv_cache)
+    return einsum("bhc,chv->bhv", oc, kv_b_v)            # absorb W_UV

@@ -4,6 +4,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common import einsum, matmul
+
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dtype = x.dtype
@@ -37,14 +39,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    return matmul(F.silu(matmul(x, w_gate)) * matmul(x, w_up), w_down)
 
 
 def geglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
           w_down: torch.Tensor) -> torch.Tensor:
     """GELU-gated feed-forward. The GELU is the tanh approximation, which
     is ``jax.nn.gelu``'s default (the exact one differs by about 1e-3)."""
-    return (F.gelu(x @ w_gate, approximate="tanh") * (x @ w_up)) @ w_down
+    return matmul(F.gelu(matmul(x, w_gate), approximate="tanh")
+                  * matmul(x, w_up), w_down)
 
 
 def causal_conv1d(x: torch.Tensor, kernel: torch.Tensor,
@@ -73,7 +76,7 @@ def _xent_chunk(h, head_w, y, m):
     float32 logits. A label of -1 marks a masked position: JAX's
     ``take_along_axis`` reads it as the last column, ``gather`` refuses it,
     so it is clamped to 0; the mask zeroes the term either way."""
-    logits = torch.einsum("bsd,dv->bsv", h, head_w).float()
+    logits = einsum("bsd,dv->bsv", h, head_w).float()
     lse = torch.logsumexp(logits, dim=-1)
     lab = torch.gather(logits, -1, y.clamp(min=0).long()[..., None])[..., 0]
     return ((lse - lab) * m).sum(), m.sum()

@@ -22,14 +22,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.common import ceil_div
+from repro_torch.common import ceil_div, einsum
 from repro_torch.models.layers import swiglu
 
 
 def router_topk(x: torch.Tensor, w_router: torch.Tensor, top_k: int,
                 num_experts: int):
     """Returns (weights (T, k) fp32, expert_ids (T, k) int64, aux_loss)."""
-    logits = torch.einsum("td,de->te", x.float(), w_router.float())
+    logits = einsum("td,de->te", x.float(), w_router.float())
     probs = torch.softmax(logits, dim=-1)
     top = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, ids = top.values[:, :top_k], top.indices[:, :top_k]
@@ -89,9 +89,9 @@ def moe_ffn(x: torch.Tensor, params: dict, *, top_k: int, num_experts: int,
     buf = buf.index_put((se, slot), x[st] * keep[:, None].to(x.dtype))
 
     # ---- expert FFN, batched over experts ----
-    g = torch.einsum("ecd,edf->ecf", buf, params["w_gate"])
-    u = torch.einsum("ecd,edf->ecf", buf, params["w_up"])
-    y = torch.einsum("ecf,efd->ecd", F.silu(g) * u, params["w_down"])
+    g = einsum("ecd,edf->ecf", buf, params["w_gate"])
+    u = einsum("ecd,edf->ecf", buf, params["w_up"])
+    y = einsum("ecf,efd->ecd", F.silu(g) * u, params["w_down"])
 
     # ---- combine: each token's k results, in expert order ----
     contrib = y[se, slot].float() * (sw * keep)[:, None]   # sorted pairs

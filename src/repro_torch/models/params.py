@@ -1,15 +1,18 @@
-"""Parameter definition trees: one source of truth for shapes and init.
+"""Parameter definition trees: one source of truth for shapes, init and
+sharding.
 
 Models declare ``ParamDef`` trees; from the same tree this module makes
-concrete tensors (``init_params``). A JAX parameter tree carried over as
-numpy arrays (``params_from_numpy``) has the same paths, shapes and
-layouts, so the model loads it as it is. The sharding helpers of the JAX
-package (``abstract_tree``, ``pspec_tree``, ...) belong to the
-distributed slice and are not here.
+ * concrete tensors (``init_params``, the JAX package's ``init_tree``),
+ * ``meta`` tensors that allocate nothing (``abstract_tree``: the dry-run),
+ * ``PartitionSpec`` and ``NamedSharding`` trees via the logical-axis
+   ``Rules``, and the per-device bytes they imply.
+A JAX parameter tree carried over as numpy arrays (``params_from_numpy``)
+has the same paths, shapes and layouts, so the model loads it as it is.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
@@ -17,6 +20,7 @@ import torch
 
 from repro_torch.common import (dtype_of, resolve_device, tree_map_with_path,
                                 tree_paths)
+from repro_torch.sharding.rules import Rules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +66,33 @@ def unstack(stacked: Any) -> list:
 def bytes_of(defs: Any) -> int:
     return sum(int(np.prod(d.shape)) * dtype_of(d.dtype).itemsize
                for _, d in tree_paths(defs))
+
+
+def abstract_tree(defs: Any, rules: Rules | None = None) -> Any:
+    """``meta`` tensors of each def's shape and dtype: nothing is allocated.
+    With `rules`, each carries its ``NamedSharding`` as ``.sharding`` (the
+    JAX package's ``ShapeDtypeStruct(..., sharding=...)``)."""
+    def make(_, d: ParamDef):
+        t = torch.empty(d.shape, dtype=dtype_of(d.dtype), device="meta")
+        if rules is not None:
+            t.sharding = rules.sharding(*d.axes)
+        return t
+    return tree_map_with_path(make, defs)
+
+
+def pspec_tree(defs: Any, rules: Rules) -> Any:
+    return tree_map_with_path(lambda _, d: rules.pspec(*d.axes), defs)
+
+
+def sharding_tree(defs: Any, rules: Rules) -> Any:
+    return tree_map_with_path(lambda _, d: rules.sharding(*d.axes), defs)
+
+
+def sharded_bytes_per_device(defs: Any, rules: Rules) -> int:
+    """Exact per-device resident bytes for a def tree under its shardings
+    (ceil division per sharded dim, matching GSPMD's padding)."""
+    return sum(math.prod(rules.sharding(*d.axes).shard_shape(d.shape))
+               * dtype_of(d.dtype).itemsize for _, d in tree_paths(defs))
 
 
 def path_seed(seed: int, path: tuple) -> int:

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.common import dtype_of, resolve_device
+from repro_torch.common import dtype_of, einsum, matmul, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import embedding as embed_lib
@@ -80,12 +80,14 @@ def rg_lru_scan(u: torch.Tensor, log_a: torch.Tensor,
 
 class RecurrentGemmaLM(nn.Module):
     """Stateless, as ``TransformerLM``: methods take the parameter tree.
-    `device` is where it makes positions and caches."""
+    `device` is where it makes positions and caches.
+    `mesh` and `rules` reach the embedding, as in ``TransformerLM``."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", mesh=None, rules=None):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device, "RecurrentGemmaLM")
+        self.mesh, self.rules = mesh, rules
         self.adt = dtype_of(cfg.activation_dtype)
         period = len(cfg.block_pattern)
         self.n_macro = cfg.num_layers // period
@@ -161,8 +163,8 @@ class RecurrentGemmaLM(nn.Module):
         is this layer's (h, conv_state) views, updated in place."""
         c = self.cfg
         xs = rms_norm(x, p["norm"], c.norm_eps)
-        gate = F.gelu(xs @ p["w_gate_br"], approximate="tanh")
-        u = xs @ p["w_x"]
+        gate = F.gelu(matmul(xs, p["w_gate_br"]), approximate="tanh")
+        u = matmul(xs, p["w_x"])
         u, new_conv = causal_conv1d(u, p["conv"],
                                     cache[1] if cache is not None else None)
         uf = u.float()
@@ -181,7 +183,7 @@ class RecurrentGemmaLM(nn.Module):
             h = rg_lru_scan(b_in, log_a, None)
             if mode == "prefill":
                 new_cache = (h[:, -1], new_conv)
-        out = (h.to(x.dtype) * gate) @ p["w_out"]
+        out = matmul(h.to(x.dtype) * gate, p["w_out"])
         return x + out, new_cache
 
     def _attn_block(self, p, x, positions, *, mode, cache=None, cur_len=None):
@@ -190,9 +192,9 @@ class RecurrentGemmaLM(nn.Module):
         slot cur_len % W (W its slots) and attends with window W."""
         c = self.cfg
         xs = rms_norm(x, p["norm"], c.norm_eps)
-        q = torch.einsum("bsd,dhe->bshe", xs, p["wq"])
-        k = torch.einsum("bsd,dge->bsge", xs, p["wk"])
-        v = torch.einsum("bsd,dge->bsge", xs, p["wv"])
+        q = einsum("bsd,dhe->bshe", xs, p["wq"])
+        k = einsum("bsd,dge->bsge", xs, p["wk"])
+        v = einsum("bsd,dge->bsge", xs, p["wv"])
         q = apply_rope(q, positions, c.rope_theta)
         k = apply_rope(k, positions, c.rope_theta)
         new_cache = None
@@ -209,7 +211,7 @@ class RecurrentGemmaLM(nn.Module):
             if mode == "prefill":
                 W = min(c.window_size, k.shape[1])
                 new_cache = (k[:, -W:], v[:, -W:])
-        out = torch.einsum("bshe,hed->bsd", o, p["wo"])
+        out = einsum("bshe,hed->bsd", o, p["wo"])
         return x + out, new_cache
 
     def _block(self, p, x, positions, ltype, *, mode, cache=None,
@@ -276,11 +278,12 @@ class RecurrentGemmaLM(nn.Module):
 
     def _embed(self, params, tokens):
         return embed_lib.embed(params["embed"], tokens,
-                               self.cfg.embedding_impl).to(self.adt)
+                               self.cfg.embedding_impl, self.mesh,
+                               self.rules).to(self.adt)
 
     def _logits(self, params, x):
         h = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        return torch.einsum("bsd,dv->bsv", h, params["lm_head"])[:, 0]
+        return einsum("bsd,dv->bsv", h, params["lm_head"])[:, 0]
 
     def loss(self, params, batch):
         """batch: tokens (b, s), labels (b, s) with -1 at masked positions.

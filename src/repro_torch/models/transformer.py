@@ -30,7 +30,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.common import cache_cast, dtype_of, resolve_device
+from repro_torch.common import cache_cast, dtype_of, einsum, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import embedding as embed_lib
@@ -95,9 +95,14 @@ def _remat(fn, policy: str):
 class TransformerLM(nn.Module):
     """Stateless: methods take the parameter tree (as the JAX model does),
     so one module serves weights made by ``init_params`` or carried over by
-    ``params_from_numpy``. `device` is where it makes positions and caches."""
+    ``params_from_numpy``. `device` is where it makes positions and caches.
+    `mesh` and `rules` (``launch.mesh.Mesh``, ``sharding.Rules``) reach
+    the embedding: with ``embedding_impl="mapsin"`` the lookup runs
+    vocab-sharded over the mesh's `model` axis. The JAX model's
+    ``_constrain`` (``with_sharding_constraint``) has no counterpart: it
+    places values and changes none."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", mesh=None, rules=None):
         super().__init__()
         if cfg.family not in ("dense", "moe", "vlm", "audio"):
             raise ValueError(f"{cfg.name}: TransformerLM runs the dense, MoE, "
@@ -105,6 +110,7 @@ class TransformerLM(nn.Module):
                              f"(models.build_model picks the model)")
         self.cfg = cfg
         self.device = resolve_device(device, "TransformerLM")
+        self.mesh, self.rules = mesh, rules
         self.adt = dtype_of(cfg.activation_dtype)
 
     # ------------------------------------------------------------------
@@ -222,9 +228,9 @@ class TransformerLM(nn.Module):
         c = self.cfg
         eps = c.norm_eps
         xs = rms_norm(x, p["norm"], eps)
-        q = torch.einsum("bsd,dhe->bshe", xs, p["wq"])
-        k = torch.einsum("bsd,dge->bsge", xs, p["wk"])
-        v = torch.einsum("bsd,dge->bsge", xs, p["wv"])
+        q = einsum("bsd,dhe->bshe", xs, p["wq"])
+        k = einsum("bsd,dge->bsge", xs, p["wk"])
+        v = einsum("bsd,dge->bsge", xs, p["wv"])
         if c.qk_norm:
             q = rms_norm(q, p["qn"], eps)
             k = rms_norm(k, p["kn"], eps)
@@ -243,7 +249,7 @@ class TransformerLM(nn.Module):
                                    window=c.window_size, block_q=c.attn_block_q)
             if mode == "prefill":
                 new_kv = (k, v)
-        out = torch.einsum("bshe,hed->bsd", o, p["wo"])
+        out = einsum("bshe,hed->bsd", o, p["wo"])
         return x + out, new_kv
 
     def _mla_attention(self, p, x, positions, *, mode, cache=None,
@@ -260,11 +266,11 @@ class TransformerLM(nn.Module):
         eps = c.norm_eps
         dn, dr = c.qk_nope_head_dim, c.qk_rope_head_dim
         xs = rms_norm(x, p["norm"], eps)
-        cq = rms_norm(torch.einsum("bsd,dq->bsq", xs, p["q_a"]), p["q_norm"], eps)
-        q = torch.einsum("bsq,qhe->bshe", cq, p["q_b"])
+        cq = rms_norm(einsum("bsd,dq->bsq", xs, p["q_a"]), p["q_norm"], eps)
+        q = einsum("bsq,qhe->bshe", cq, p["q_b"])
         q_nope, q_pe = q[..., :dn], q[..., dn:]
         q_pe = apply_rope(q_pe, positions, c.rope_theta)
-        kv = torch.einsum("bsd,dk->bsk", xs, p["kv_a"])
+        kv = einsum("bsd,dk->bsk", xs, p["kv_a"])
         ckv, k_pe = kv[..., :c.kv_lora_rank], kv[..., c.kv_lora_rank:]
         ckv = rms_norm(ckv, p["kv_norm"], eps)
         k_pe = apply_rope(k_pe[:, :, None, :], positions, c.rope_theta)[:, :, 0]
@@ -286,7 +292,7 @@ class TransformerLM(nn.Module):
                 block_kv=c.attn_block_kv)
             if mode == "prefill":
                 new_kv = (ckv, k_pe)
-        out = torch.einsum("bshv,hvd->bsd", o, p["wo"])
+        out = einsum("bshv,hvd->bsd", o, p["wo"])
         return x + out, new_kv
 
     def _ffn(self, p, x, moe: bool):
@@ -327,14 +333,15 @@ class TransformerLM(nn.Module):
         if c.family == "audio":
             # tokens: (b, s, K): the codebooks' embeddings summed in order
             # in the table's dtype, as the reference's reduce(jnp.add)
-            out = embed_lib.embed(params["embed"][0], tokens[..., 0],
-                                  c.embedding_impl)
+            out = self._embed(params["embed"][0], tokens[..., 0])
             for k in range(1, c.num_codebooks):
-                out = out + embed_lib.embed(params["embed"][k],
-                                            tokens[..., k], c.embedding_impl)
+                out = out + self._embed(params["embed"][k], tokens[..., k])
             return out.to(self.adt)
-        return embed_lib.embed(params["embed"], tokens,
-                               c.embedding_impl).to(self.adt)
+        return self._embed(params["embed"], tokens).to(self.adt)
+
+    def _embed(self, table, tokens):
+        return embed_lib.embed(table, tokens, self.cfg.embedding_impl,
+                               self.mesh, self.rules)
 
     def _embed_inputs(self, params, batch):
         """(x, n_prefix): the token embeddings, behind the projected patch
@@ -342,9 +349,9 @@ class TransformerLM(nn.Module):
         x = self._embed_tokens(params, batch["tokens"])
         if self.cfg.family != "vlm":
             return x, 0
-        patches = torch.einsum("bpv,vd->bpd",
-                               batch["patch_embeds"].to(self.adt),
-                               params["patch_proj"]).to(self.adt)
+        patches = einsum("bpv,vd->bpd",
+                         batch["patch_embeds"].to(self.adt),
+                         params["patch_proj"]).to(self.adt)
         return torch.cat([patches, x], dim=1), patches.shape[1]
 
     def _head_w(self, params):
@@ -355,8 +362,8 @@ class TransformerLM(nn.Module):
     def _last_logits(self, params, h):
         """(b, vocab), or (b, K, vocab) for the audio family."""
         if self.cfg.family == "audio":
-            return torch.einsum("bsd,kdv->bskv", h, params["lm_head"])[:, 0]
-        return torch.einsum("bsd,dv->bsv", h, self._head_w(params))[:, 0]
+            return einsum("bsd,kdv->bskv", h, params["lm_head"])[:, 0]
+        return einsum("bsd,dv->bsv", h, self._head_w(params))[:, 0]
 
     # ------------------------------------------------------------------
     # Training
@@ -410,7 +417,7 @@ class TransformerLM(nn.Module):
         h = rms_norm(hidden[:, :-1], p["norm1"], c.norm_eps)
         e = rms_norm(self._embed_tokens(params, tokens[:, 1:]), p["norm2"],
                      c.norm_eps)
-        x = torch.einsum("bsd,dk->bsk", torch.cat([h, e], dim=-1), p["proj"])
+        x = einsum("bsd,dk->bsk", torch.cat([h, e], dim=-1), p["proj"])
         positions = torch.arange(x.shape[1], device=x.device)[None]
         x, _, _ = self._block(p["block"], x, positions, bool(c.num_experts),
                               mode="train")

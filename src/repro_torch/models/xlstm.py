@@ -10,6 +10,10 @@ matrix state (C, n, m) across chunks, a loop over chunks where the JAX
 package scans); the sLSTM is sequential by definition (`slstm_seq`: a loop
 over time, as the JAX package's ``lax.scan``). Decode is one recurrent
 step of each cell. The head is tied to the embedding.
+
+On ``meta`` tensors (no values: the dry-run's count) both loops run their
+middle steps as one batch (`_steps_on_meta`), so that a 32k-token
+sequence counts in one dispatch of each op, not one a step.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.common import dtype_of, resolve_device
+from repro_torch.common import dtype_of, einsum, matmul, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import embedding as embed_lib
 from repro_torch.models.layers import (causal_conv1d, geglu, rms_norm,
@@ -56,35 +60,74 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, state=None, chunk=CHUNK):
     else:
         C, n, m = state
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))
+    n_chunks = q.shape[1] // L
+    if q.device.type == "meta" and n_chunks > 2:
+        out, state = _steps_on_meta(
+            lambda xs, st: _mlstm_chunk(*xs, *st, tri),
+            (q, k, v, log_i, log_f), (C, n, m), n_chunks)
+        return out[:, :s], state
     outs = []
-    for j in range(q.shape[1] // L):
+    for j in range(n_chunks):
         sl = slice(j * L, (j + 1) * L)
-        qj, kj, vj, li, lf = q[:, sl], k[:, sl], v[:, sl], log_i[:, sl], log_f[:, sl]
-        lc = torch.cumsum(lf, dim=1)                      # inclusive decay to t
-        Ft = lc[:, -1]                                    # (b, h) total decay
-        # intra-chunk log weights D[t, s] = lc_t - lc_s + li_s (s <= t)
-        D = lc[:, :, None, :] - lc[:, None, :, :] + li[:, None, :, :]
-        D = torch.where(tri[None, :, :, None], D, M_INIT)  # (b, t, s, h)
-        b_inter = lc + m[:, None, :]                      # (b, t, h)
-        m_t = torch.maximum(D.amax(dim=2), b_inter)       # (b, t, h)
-        w_intra = torch.exp(D - m_t[:, :, None, :])
-        w_inter = torch.exp(b_inter - m_t)
-        scores = torch.einsum("bthe,bshe->btsh", qj, kj) * w_intra
-        num = torch.einsum("btsh,bshe->bthe", scores, vj)
-        num = num + torch.einsum("bthe,bhef->bthf", qj, C) * w_inter[..., None]
-        den = scores.sum(dim=2)                           # (b, t, h)
-        den = den + torch.einsum("bthe,bhe->bth", qj, n) * w_inter
-        outs.append(num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None])
-        # the state at the end of the chunk
-        key_decay = Ft[:, None, :] - lc + li              # (b, s, h)
-        m_new = torch.maximum(Ft + m, key_decay.amax(dim=1))
-        kw = torch.exp(key_decay - m_new[:, None, :])     # (b, s, h)
-        carry_w = torch.exp(Ft + m - m_new)               # (b, h)
-        C = C * carry_w[..., None, None] + torch.einsum(
-            "bshe,bshf,bsh->bhef", kj, vj, kw)
-        n = n * carry_w[..., None] + torch.einsum("bshe,bsh->bhe", kj, kw)
-        m = m_new
+        out, (C, n, m) = _mlstm_chunk(q[:, sl], k[:, sl], v[:, sl],
+                                      log_i[:, sl], log_f[:, sl], C, n, m, tri)
+        outs.append(out)
     return torch.cat(outs, dim=1)[:, :s], (C, n, m)
+
+
+def _mlstm_chunk(qj, kj, vj, li, lf, C, n, m, tri):
+    """One chunk of `mlstm_chunkwise` from the state (C, n, m) before it:
+    (out (b, L, h, e), the state after it)."""
+    lc = torch.cumsum(lf, dim=1)                      # inclusive decay to t
+    Ft = lc[:, -1]                                    # (b, h) total decay
+    # intra-chunk log weights D[t, s] = lc_t - lc_s + li_s (s <= t)
+    D = lc[:, :, None, :] - lc[:, None, :, :] + li[:, None, :, :]
+    D = torch.where(tri[None, :, :, None], D, M_INIT)  # (b, t, s, h)
+    b_inter = lc + m[:, None, :]                      # (b, t, h)
+    m_t = torch.maximum(D.amax(dim=2), b_inter)       # (b, t, h)
+    w_intra = torch.exp(D - m_t[:, :, None, :])
+    w_inter = torch.exp(b_inter - m_t)
+    scores = einsum("bthe,bshe->btsh", qj, kj) * w_intra
+    num = einsum("btsh,bshe->bthe", scores, vj)
+    num = num + einsum("bthe,bhef->bthf", qj, C) * w_inter[..., None]
+    den = scores.sum(dim=2)                           # (b, t, h)
+    den = den + einsum("bthe,bhe->bth", qj, n) * w_inter
+    out = num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None]
+    # the state at the end of the chunk
+    key_decay = Ft[:, None, :] - lc + li              # (b, s, h)
+    m_new = torch.maximum(Ft + m, key_decay.amax(dim=1))
+    kw = torch.exp(key_decay - m_new[:, None, :])     # (b, s, h)
+    carry_w = torch.exp(Ft + m - m_new)               # (b, h)
+    C = C * carry_w[..., None, None] + einsum(
+        "bshe,bshf,bsh->bhef", kj, vj, kw)
+    n = n * carry_w[..., None] + einsum("bshe,bsh->bhe", kj, kw)
+    return out, (C, n, m_new)
+
+
+def _steps_on_meta(step, xs, state, n):
+    """`n` > 2 steps of ``step(xs_j, state) -> (out_j, state)`` on
+    ``meta`` tensors, xs each (b, n * L, ...) and xs_j its j-th L-slice
+    along dim 1; returns (the outs joined along dim 1, the last state).
+
+    Step 0 runs from `state`, steps 1..n-2 as one step over (n - 2) * b
+    rows from the state after step 0, step n-1 from the last of those
+    rows. Every product has the shapes of the loop's, times the steps it
+    stands for, and each step's input state takes part in the graph
+    exactly as in the loop, so the forward and backward flops are the
+    loop's."""
+    L, b = xs[0].shape[1] // n, xs[0].shape[0]
+    mid = n - 2
+    first, state = step(tuple(x[:, :L] for x in xs), state)
+    rows = tuple(t.expand(mid, *t.shape).reshape(mid * b, *t.shape[1:])
+                 for t in state)
+    middle, state = step(tuple(
+        x[:, L:-L].reshape(b, mid, L, *x.shape[2:]).transpose(0, 1)
+        .reshape(mid * b, L, *x.shape[2:]) for x in xs), rows)
+    middle = middle.reshape(mid, b, *middle.shape[1:]).transpose(0, 1)
+    last, state = step(tuple(x[:, -L:] for x in xs),
+                       tuple(t[-b:] for t in state))
+    return torch.cat([first, middle.reshape(b, mid * L, *middle.shape[3:]),
+                      last], dim=1), state
 
 
 def mlstm_decode(q, k, v, log_i, log_f, state):
@@ -95,10 +138,10 @@ def mlstm_decode(q, k, v, log_i, log_f, state):
     m_new = torch.maximum(log_f + m, log_i)
     i_w = torch.exp(log_i - m_new)
     f_w = torch.exp(log_f + m - m_new)
-    C = C * f_w[..., None, None] + torch.einsum("bhe,bhf,bh->bhef", k, v, i_w)
+    C = C * f_w[..., None, None] + einsum("bhe,bhf,bh->bhef", k, v, i_w)
     n = n * f_w[..., None] + k * i_w[..., None]
-    num = torch.einsum("bhe,bhef->bhf", q, C)
-    den = torch.einsum("bhe,bhe->bh", q, n)
+    num = einsum("bhe,bhef->bhf", q, C)
+    den = einsum("bhe,bhe->bh", q, n)
     out = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
     return out, (C, n, m_new)
 
@@ -111,7 +154,7 @@ def slstm_step(x_t, h_prev, c_prev, n_prev, m_prev, p):
     """x_t: (b, 4, h, e) the input side's pre-activations of the gates i,
     f, z, o; the recurrent side is h_prev through the block-diagonal
     per-head p["R"] (4, h, e, e). Returns (h, c, n, m), each (b, h, e)."""
-    z_t = x_t + torch.einsum("bhe,ghef->bghf", h_prev, p["R"])
+    z_t = x_t + einsum("bhe,ghef->bghf", h_prev, p["R"])
     i_t, f_t, z_in, o_in = z_t.unbind(1)
     m_new = torch.maximum(f_t + m_prev, i_t)
     i = torch.exp(i_t - m_new)
@@ -129,6 +172,11 @@ def slstm_seq(x_gates, p, state=None):
     if state is None:
         z = x_gates.new_zeros((b, h, e))
         state = (z, z, z, x_gates.new_full((b, h, e), M_INIT))
+    if x_gates.device.type == "meta" and s > 2:
+        def step(xs, st):
+            st = slstm_step(xs[0][:, 0], *st, p)
+            return st[0][:, None], st
+        return _steps_on_meta(step, (x_gates,), state, s)
     hs = []
     for t in range(s):
         state = slstm_step(x_gates[:, t], *state, p)
@@ -143,12 +191,14 @@ def slstm_seq(x_gates, p, state=None):
 
 class XLSTMLM(nn.Module):
     """Stateless, as ``TransformerLM``: methods take the parameter tree.
-    `device` is where it makes caches."""
+    `device` is where it makes caches.
+    `mesh` and `rules` reach the embedding, as in ``TransformerLM``."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", mesh=None, rules=None):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device, "XLSTMLM")
+        self.mesh, self.rules = mesh, rules
         self.adt = dtype_of(cfg.activation_dtype)
         self.inner = int(cfg.d_model * cfg.mlstm_proj_factor)
         self.heads = cfg.num_heads
@@ -211,14 +261,14 @@ class XLSTMLM(nn.Module):
         b, s, _ = x.shape
         h = self.heads
         xs = rms_norm(x, p["norm"], c.norm_eps)
-        xm, z = (xs @ p["w_up"]).chunk(2, dim=-1)
+        xm, z = matmul(xs, p["w_up"]).chunk(2, dim=-1)
         xc, new_conv = causal_conv1d(xm, p["conv"],
                                      cache[3] if cache is not None else None)
         xc = F.silu(xc)
-        q = torch.einsum("bsi,ihe->bshe", xc, p["wq"]).float()
-        k = torch.einsum("bsi,ihe->bshe", xc, p["wk"]).float()
-        v = torch.einsum("bsi,ihe->bshe", xm, p["wv"]).float()
-        gif = xc.float() @ p["w_if"]
+        q = einsum("bsi,ihe->bshe", xc, p["wq"]).float()
+        k = einsum("bsi,ihe->bshe", xc, p["wk"]).float()
+        v = einsum("bsi,ihe->bshe", xm, p["wv"]).float()
+        gif = matmul(xc.float(), p["w_if"])
         log_i = gif[..., :h] + p["b_i"]
         log_f = F.logsigmoid(gif[..., h:] + p["b_f"])
         new_cache = None
@@ -235,14 +285,14 @@ class XLSTMLM(nn.Module):
         out = out.reshape(b, s, self.inner).to(x.dtype)
         out = rms_norm(out, p["gn"], c.norm_eps)  # group-norm stand-in
         out = out * F.silu(z)
-        return x + out @ p["w_down"], new_cache
+        return x + matmul(out, p["w_down"]), new_cache
 
     def _slstm_block(self, p, x, *, mode, cache=None):
         """cache: this layer's (h, c, n, m); in decode its views, updated
         in place. Returns (x + out + ffn, the new cache in prefill)."""
         c = self.cfg
         xs = rms_norm(x, p["norm"], c.norm_eps).float()
-        gates = torch.einsum("bsd,dghe->bsghe", xs, p["W"]) + p["b"]
+        gates = einsum("bsd,dghe->bsghe", xs, p["W"]) + p["b"]
         new_cache = None
         if mode == "decode":
             state = slstm_step(gates[:, 0], *cache, p)
@@ -296,14 +346,15 @@ class XLSTMLM(nn.Module):
 
     def _embed(self, params, tokens):
         return embed_lib.embed(params["embed"], tokens,
-                               self.cfg.embedding_impl).to(self.adt)
+                               self.cfg.embedding_impl, self.mesh,
+                               self.rules).to(self.adt)
 
     def _head(self, params):
         return params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
 
     def _logits(self, params, x):
         h = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        return torch.einsum("bsd,dv->bsv", h, self._head(params))[:, 0]
+        return einsum("bsd,dv->bsv", h, self._head(params))[:, 0]
 
     def loss(self, params, batch):
         """batch: tokens (b, s), labels (b, s) with -1 at masked positions.

@@ -8,8 +8,11 @@ The JAX package's ``repro.runtime.trainer`` on one device:
   * straggler watchdog: steps exceeding `factor` x the median step time
     are flagged and counted.
 The step runs eagerly (no ``jit``); parameters and optimizer state are
-updated in place, as the JAX trainer donates them. The mesh and its
-elastic restore belong to the sharding slice.
+updated in place, as the JAX trainer donates them. A mesh and rules, as
+in the JAX trainer, go to ``build_model`` (the vocab-sharded embedding);
+``restore_or_init`` loads onto the model's device without shardings, as
+the JAX trainer does (``checkpoint.load`` with shardings is the elastic
+restore).
 
 A bit-exact resume needs every operation of the step to give the same bits
 on a rerun. On a CUDA device the ``Trainer`` turns on
@@ -61,14 +64,14 @@ class StragglerWatchdog:
 class Trainer:
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig, workdir: str,
                  opt_cfg: OptConfig = OptConfig(), ckpt_every: int = 10,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", mesh=None, rules=None):
         self.cfg, self.shape, self.workdir = cfg, shape, workdir
         self.opt_cfg, self.ckpt_every, self.seed = opt_cfg, ckpt_every, seed
         self.device = resolve_device(device, "Trainer")
         if self.device.type == "cuda":      # see the module docstring
             os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
             torch.use_deterministic_algorithms(True)
-        self.model = build_model(cfg, self.device)
+        self.model = build_model(cfg, mesh, rules, device=self.device)
         self.step_fn = make_train_step(self.model, opt_cfg)
         self.ckpt = AsyncCheckpointer(workdir)
         self.watchdog = StragglerWatchdog()

@@ -34,6 +34,13 @@ FAMILY_MODULES = {f"repro_torch.configs.{m}" for m in (
     "pixtral_12b", "qwen3_8b", "recurrentgemma_9b", "xlstm_125m", "yi_34b",
     "yi_6b")} | {f"repro_torch.models.{m}" for m in ("moe", "recurrent",
                                                     "xlstm")}
+# the sharding and launch slice: the rules, the mesh, the cost model, the
+# dry-run and roofline, and the paper's workload config
+SHARDING_MODULES = {"repro_torch.sharding", "repro_torch.sharding.rules",
+                    "repro_torch.launch.mesh", "repro_torch.launch.costmodel",
+                    "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+                    "repro_torch.configs.mapsin_rdf"}
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _env():
@@ -47,14 +54,14 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     count, _, names = out.stdout.partition("\n")
-    assert int(count.split()[0]) >= 63               # every module was imported
+    assert int(count.split()[0]) >= 70               # every module was imported
     assert FAMILY_MODULES <= set(names.split())
+    assert SHARDING_MODULES <= set(names.split())
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
                                         [*PORT.rglob("*.py"),
-                                         ROOT / "chip_smoke.py",
-                                         ROOT / "examples" / "torch_train_lm.py"]))
+                                         ROOT / "chip_smoke.py", *EXAMPLES]))
 def test_no_jax_import_statement(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
