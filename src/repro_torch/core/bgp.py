@@ -11,16 +11,17 @@ compiles one on the spot. ``ExecConfig`` is runtime-only: kernel
 Execution model: the cascade — the first-pattern scan plus every step — is
 one closure per (plan, cfg), cached on the store, run eagerly on the
 store's device. The default path never syncs the host: every count stays
-a device tensor, and the per-step overflow counters ride back as one
-small tensor. Host syncs happen only on the opt-in ``stats=`` path, which
-records the actual row counts, the per-step overflow and the measured
-probe->region fan-out that feeds ``query_traffic_actual``.
+a device tensor, and the per-step overflow counters and valid-row counts
+ride back as one small tensor. Host syncs happen only on the opt-in
+``stats=`` path, which records the actual row counts, the per-step
+overflow and the measured probe->region fan-out that feeds
+``query_traffic_actual``. An optional ``tracer`` (``obs/trace.py``)
+records the plan lookup and each step as spans; it syncs nothing either.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-import time
 
 import numpy as np
 import torch
@@ -36,6 +37,7 @@ from repro_torch.core.rdf import INF_KEY
 from repro_torch.core.triple_store import (TripleStore, _shard_sorted,
                                            range_intersects_region)
 from repro_torch.kernels.ops import IMPLS
+from repro_torch.obs.trace import Tracer, clock, optional_span
 
 
 ROUTINGS = ("broadcast", "a2a")
@@ -63,14 +65,15 @@ class ExecConfig:
 
 def as_plan(store: TripleStore | None, query, mode: str = "mapsin",
             cfg: ExecConfig = ExecConfig(), caps: Caps = Caps(),
-            num_shards: int = 0, route_shards: int = 10) -> PhysicalPlan:
+            num_shards: int = 0, route_shards: int = 10,
+            tracer: Tracer | None = None) -> PhysicalPlan:
     """Resolve a query argument (PhysicalPlan | LogicalPlan | patterns)
     into a PhysicalPlan."""
     if isinstance(query, PhysicalPlan):
         return query
     return compile_plan(store, query, caps, mode=mode, reorder=cfg.reorder,
                         routing=cfg.routing, num_shards=num_shards,
-                        route_shards=route_shards)
+                        route_shards=route_shards, tracer=tracer)
 
 
 # ---------------------------------------------------------------------------
@@ -150,49 +153,65 @@ def query_traffic(query, mode: str, caps: Caps = Caps(),
 
 def _cascade_body(plan: PhysicalPlan, cfg: ExecConfig):
     """The whole-cascade computation:
-    (keys_spo, keys_ops, scratch) -> (Bindings, per-step overflow).
+    (keys_spo, keys_ops, scratch, tracer=None) -> (Bindings, counts).
 
     Each step runs the operator the planner chose for it, at the caps the
-    plan embeds. The second output is the (n_steps,) CUMULATIVE overflow
-    counter after each step, so overflow can be localized to its step
-    without the instrumented run's host syncs.
+    plan embeds. `counts` is one (2 * n_steps,) int32 tensor: the
+    CUMULATIVE overflow counter after each step, so overflow can be
+    localized to its step without the instrumented run's host syncs, then
+    each step's valid rows before its out_cap cut (what its output
+    ``compact`` found among the slots it searched), less that cut. A
+    `tracer` (a call argument, never part of the cached closure) records
+    each step as a span named by its operator, with its index, its slots
+    and its cut.
     """
     steps = plan.steps
     first = steps[0].patterns[0]
     first_vars = make_plan(first, ()).out_var_names
+    names = tuple("bgp." + st.kind for st in steps)
 
-    def fn(keys_spo, keys_ops, scratch):
+    def fn(keys_spo, keys_ops, scratch, tracer: Tracer | None = None):
         keys_of = lambda pat, dom: (keys_spo if make_plan(pat, dom).index == 0
                                     else keys_ops)
-        bnd = ms.scan_pattern(first, keys_of(first, ()),
-                              steps[0].caps.out_cap, cfg.impl,
-                              scratch=scratch)
-        ovfs = [bnd.overflow]
-        for st in steps[1:]:
-            c = st.caps
-            if st.kind == "multiway":
-                keys = keys_of(st.patterns[0], bnd.vars)
-                bnd = ms.multiway_step(bnd, st.patterns, keys, c.row_cap,
-                                       c.out_cap, cfg.impl)
-            elif st.kind == "mapsin":
-                keys = keys_of(st.patterns[0], bnd.vars)
-                bnd = ms.mapsin_step(bnd, st.patterns[0], keys,
-                                     c.probe_cap, c.out_cap, cfg.impl)
-            else:                # reduce_side: relation scanned fresh
-                for pat in st.patterns:
-                    bnd = rs.local_reduce_step(bnd, pat, keys_of(pat, ()),
-                                               c.scan_cap, c.probe_cap,
-                                               c.out_cap, cfg.impl)
+        bnd, ovfs, founds = None, [], []
+        for i, st in enumerate(steps):
+            c, found = st.caps, []
+            with optional_span(tracer, names[i], step=i) as sp:
+                if st.kind == "scan":
+                    bnd = ms.scan_pattern(first, keys_of(first, ()),
+                                          c.out_cap, cfg.impl,
+                                          scratch=scratch, found=found)
+                elif st.kind == "multiway":
+                    keys = keys_of(st.patterns[0], bnd.vars)
+                    bnd = ms.multiway_step(bnd, st.patterns, keys, c.row_cap,
+                                           c.out_cap, cfg.impl, found)
+                elif st.kind == "mapsin":
+                    keys = keys_of(st.patterns[0], bnd.vars)
+                    bnd = ms.mapsin_step(bnd, st.patterns[0], keys,
+                                         c.probe_cap, c.out_cap, cfg.impl,
+                                         found)
+                else:            # reduce_side: relation scanned fresh
+                    for pat in st.patterns:
+                        bnd = rs.local_reduce_step(
+                            bnd, pat, keys_of(pat, ()), c.scan_cap,
+                            c.probe_cap, c.out_cap, cfg.impl, found)
             ovfs.append(bnd.overflow)
-        return bnd, torch.stack(ovfs)
+            founds.append(found[-1][0])
+            if sp is not None:
+                sp.attrs.update(slots=found[-1][1], cut=found[-1][2])
+        return bnd, torch.stack(ovfs + founds)
 
     return fn, first_vars
+
+
+def _cascade_key(plan: PhysicalPlan, cfg: ExecConfig) -> tuple:
+    return ("cascade", plan, cfg)
 
 
 def _compiled_cascade(store: TripleStore, plan: PhysicalPlan,
                       cfg: ExecConfig):
     """The cascade closure for (plan, cfg), cached on the store."""
-    key = ("cascade", plan, cfg)
+    key = _cascade_key(plan, cfg)
     hit = store.plan_cache.get(key)
     if hit is None:
         hit = _cascade_body(plan, cfg)
@@ -216,7 +235,8 @@ def _check_plan_mode(query, mode: str):
 def execute_local(store: TripleStore, query, mode: str = "mapsin",
                   cfg: ExecConfig = ExecConfig(), caps: Caps = Caps(),
                   stats: list | None = None,
-                  route_shards: int | None = None) -> ms.Bindings:
+                  route_shards: int | None = None,
+                  tracer: Tracer | None = None) -> ms.Bindings:
     """Single-shard execution on the store's device.
 
     `query` is a compiled ``PhysicalPlan`` or a raw pattern sequence
@@ -226,21 +246,60 @@ def execute_local(store: TripleStore, query, mode: str = "mapsin",
     When `stats` is a list (opt-in instrumentation, off the hot path), the
     cascade runs stepwise and appends per-step dicts with actual row
     counts, the per-step overflow and the measured probe->region fan-out.
-    An explicit `route_shards` overrides the plan's measurement size."""
+    An explicit `route_shards` overrides the plan's measurement size.
+
+    With a `tracer`, the call is a ``bgp.execute_local`` span, nested in
+    whatever span is open on the tracer, over ``bgp.plan`` (the plan and
+    the cascade closure from the store's plan cache; attribute ``hit``;
+    the planner's spans inside it on a miss) and one span per cascade
+    step: ``bgp.scan``, ``bgp.mapsin``, ``bgp.multiway`` or
+    ``bgp.reduce_side``, with attributes ``step``, ``slots`` and
+    ``cut``. The tracer adds no device operation and no host sync: the
+    steps' valid rows stay on the device in the root's ``counts`` until
+    ``read_step_counts``."""
     _check_plan_mode(query, mode)
-    plan = as_plan(store, query, mode, cfg, caps,
-                   route_shards=10 if route_shards is None else route_shards)
-    if (route_shards is not None and isinstance(query, PhysicalPlan)
-            and plan.route_shards != route_shards):
-        plan = dataclasses.replace(plan, route_shards=route_shards)
-    if stats is not None:
-        return _execute_local_instrumented(store, plan, cfg, stats)
-    fn, first_vars = _compiled_cascade(store, plan, cfg)
-    scratch = ms.Bindings.empty(first_vars, plan.steps[0].caps.out_cap,
-                                store.device)
-    bnd, step_ovf = fn(store.flat_keys(0), store.flat_keys(1), scratch)
-    bnd.step_overflow = step_ovf
+    with optional_span(tracer, "bgp.execute_local") as root:
+        with optional_span(tracer, "bgp.plan") as psp:
+            seen = len(tracer.spans) if psp is not None else 0
+            plan = as_plan(store, query, mode, cfg, caps,
+                           route_shards=(10 if route_shards is None
+                                         else route_shards),
+                           tracer=tracer)
+            if (route_shards is not None and isinstance(query, PhysicalPlan)
+                    and plan.route_shards != route_shards):
+                plan = dataclasses.replace(plan, route_shards=route_shards)
+            if stats is not None:
+                return _execute_local_instrumented(store, plan, cfg, stats)
+            if psp is not None:
+                # a plan compiled here recorded planner spans
+                psp.attrs["hit"] = (len(tracer.spans) == seen
+                                    and _cascade_key(plan, cfg)
+                                    in store.plan_cache)
+            fn, first_vars = _compiled_cascade(store, plan, cfg)
+        scratch = ms.Bindings.empty(first_vars, plan.steps[0].caps.out_cap,
+                                    store.device)
+        bnd, counts = fn(store.flat_keys(0), store.flat_keys(1), scratch,
+                         tracer)
+        bnd.step_overflow = counts[:len(plan.steps)]
+        if root is not None:
+            root.attrs["counts"] = counts
     return bnd
+
+
+def read_step_counts(tracer: Tracer) -> None:
+    """Put ``found``, its valid rows before the out_cap cut, on each
+    traced cascade step span. The counts ride in the small tensor each
+    traced ``execute_local`` left on its root span (``counts``); they are
+    copied here, one copy a call, after the traced work, which a copy
+    during it would have made wait for the device."""
+    counts = {sp.span_id: sp.attrs.pop("counts").tolist()
+              for sp in tracer.spans
+              if sp.name == "bgp.execute_local" and "counts" in sp.attrs}
+    for sp in tracer.spans:
+        c = counts.get(sp.parent_id)
+        if c is not None and "step" in sp.attrs:
+            sp.attrs["found"] = (c[len(c) // 2 + sp.attrs["step"]]
+                                 + sp.attrs["cut"])
 
 
 def _route_splits(store: TripleStore, index: int, s: int) -> np.ndarray:
@@ -282,22 +341,23 @@ def _execute_local_instrumented(store: TripleStore, plan: PhysicalPlan,
     steps = plan.steps
     keys_of = lambda pat, dom: store.flat_keys(make_plan(pat, dom).index)
     s_route = plan.route_shards
-    t0 = time.perf_counter()
+    t0 = clock()
     bnd = ms.scan_pattern(steps[0].patterns[0],
                           keys_of(steps[0].patterns[0], ()),
                           steps[0].caps.out_cap, cfg.impl)
     ovf_prev = int(bnd.overflow)
     ovf_cum = [ovf_prev]
-    t1 = time.perf_counter()
-    # per-step wall stamps (t0/t1 on the perf_counter clock, wall_s the
-    # delta) ride the stats dicts only on this opt-in path
+    t1 = clock()
+    # per-step wall stamps (t0/t1 on obs.trace.clock, the tracer's own
+    # clock, wall_s the delta) ride the stats dicts only on this opt-in
+    # path
     stats.append({"kind": "scan", "n_in": 0, "n_out": int(bnd.count()),
                   "nv": len(bnd.vars), "relation": int(bnd.count()),
                   "n_patterns": 1, "overflow": ovf_prev,
                   "t0": t0, "t1": t1, "wall_s": t1 - t0})
     for st in steps[1:]:
         c = st.caps
-        t0 = time.perf_counter()
+        t0 = clock()
         n_in, nv_in = int(bnd.count()), len(bnd.vars)
         deliveries = max_region = probe_len = 0
         if st.kind == "multiway":
@@ -320,7 +380,7 @@ def _execute_local_instrumented(store: TripleStore, plan: PhysicalPlan,
                 bnd = rs.local_reduce_step(bnd, pat, keys, c.scan_cap,
                                            c.probe_cap, c.out_cap, cfg.impl)
         n_out = int(bnd.count())         # host sync: the step's work is done
-        t1 = time.perf_counter()         # before the relation-scan extras
+        t1 = clock()                     # before the relation-scan extras
         rel = 0
         for pat in st.patterns:
             r = ms.scan_pattern(pat, keys_of(pat, ()), c.scan_cap, cfg.impl)

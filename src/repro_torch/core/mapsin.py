@@ -52,11 +52,15 @@ class Bindings:
 
 
 def compact(rows: torch.Tensor, valid: torch.Tensor, out_cap: int,
-            buf: torch.Tensor | None = None):
+            buf: torch.Tensor | None = None, found: list | None = None):
     """Pack valid rows (N, nv) to the front of a (out_cap, nv) buffer.
 
     Returns (table, valid_mask, n_dropped int32). When `buf` (a zeroed
-    (out_cap, nv) tensor) is given, it supplies the padding slots.
+    (out_cap, nv) tensor) is given, it supplies the padding slots. When
+    `found` is a list, it gets (over, N, cut) appended: the valid rows
+    before the out_cap cut are ``over + cut``, N the slots searched.
+    `over`, a () int32 tensor, is the difference the dropped count is
+    clamped from, so the count costs no operation and holds no buffer.
 
     Gather-formulated: the running count c = cumsum(valid) is
     non-decreasing, so the source row of output slot p (the (p+1)-th valid
@@ -67,11 +71,17 @@ def compact(rows: torch.Tensor, valid: torch.Tensor, out_cap: int,
     if buf is None:
         buf = torch.zeros((out_cap, rows.shape[1]), dtype=rows.dtype, device=dev)
     if valid.shape[0] == 0:
-        return (buf, torch.zeros((out_cap,), dtype=torch.bool, device=dev),
-                torch.zeros((), dtype=torch.int32, device=dev))
+        vmask = torch.zeros((out_cap,), dtype=torch.bool, device=dev)
+        none = torch.zeros((), dtype=torch.int32, device=dev)
+        if found is not None:
+            found.append((none, 0, 0))
+        return buf, vmask, none
     c = torch.cumsum(valid, 0, dtype=torch.int32)          # running count
     total = c[-1]
-    dropped = (total - out_cap).clamp(min=0)
+    over = total - out_cap               # rows past the cut (< 0: room)
+    dropped = over.clamp(min=0)
+    if found is not None:
+        found.append((over, valid.shape[0], out_cap))
     src = torch.searchsorted(
         c, torch.arange(out_cap, dtype=torch.int32, device=dev), right=True)
     src = src.clamp(max=valid.shape[0] - 1)
@@ -141,7 +151,7 @@ def probe(plan: PatternPlan, keys: torch.Tensor, table: torch.Tensor,
 
 def merge_bindings(bindings: Bindings, plan: PatternPlan, k: torch.Tensor,
                    match: torch.Tensor, missed: torch.Tensor,
-                   out_cap: int) -> Bindings:
+                   out_cap: int, found: list | None = None) -> Bindings:
     """Merge mu_n with compatible mappings (Alg. 1 lines 11-17).
 
     Only the ORIGIN index plus the <= 3 newly bound columns are compacted;
@@ -156,7 +166,7 @@ def merge_bindings(bindings: Bindings, plan: PatternPlan, k: torch.Tensor,
     cols = [origin] + [t[pos].to(torch.int32) for _, pos in plan.out_vars]
     rows = torch.stack([c.reshape(-1) for c in cols], dim=1)
     valid = (match & bindings.valid[:, None]).reshape(-1)
-    packed, vmask, dropped = compact(rows, valid, out_cap)
+    packed, vmask, dropped = compact(rows, valid, out_cap, found=found)
     table = bindings.table[packed[:, 0].long()]
     if plan.out_vars:
         table = torch.cat([table, packed[:, 1:]], dim=1)
@@ -172,12 +182,14 @@ def merge_bindings(bindings: Bindings, plan: PatternPlan, k: torch.Tensor,
 
 
 def scan_pattern(pattern, keys: torch.Tensor, out_cap: int,
-                 impl: str = "kernel", scratch: Bindings | None = None) -> Bindings:
+                 impl: str = "kernel", scratch: Bindings | None = None,
+                 found: list | None = None) -> Bindings:
     """First-pattern input phase: scan the (locally stored) index slice.
 
     `scratch` (a zeroed Bindings of matching shape) supplies the output
     buffers. `impl` is accepted for a uniform step signature; the scan
-    runs no kernel.
+    runs no kernel. `found`, here and in the other steps, is passed to
+    the ``compact`` that makes the step's rows.
     """
     plan = make_plan(pattern, ())
     empty = torch.zeros((1, 0), dtype=torch.int32, device=keys.device)
@@ -192,7 +204,8 @@ def scan_pattern(pattern, keys: torch.Tensor, out_cap: int,
             else torch.zeros((keys.shape[0], 0), dtype=torch.int64,
                              device=keys.device)).to(torch.int32)
     buf = scratch.table if scratch is not None else None
-    table, vmask, dropped = compact(rows, within, out_cap, buf=buf)
+    table, vmask, dropped = compact(rows, within, out_cap, buf=buf,
+                                    found=found)
     overflow = dropped.to(torch.int32)
     if scratch is not None:
         vmask = vmask | scratch.valid          # zeros; consumes the buffer
@@ -201,16 +214,18 @@ def scan_pattern(pattern, keys: torch.Tensor, out_cap: int,
 
 
 def mapsin_step(bindings: Bindings, pattern, keys: torch.Tensor,
-                probe_cap: int, out_cap: int, impl: str = "kernel") -> Bindings:
+                probe_cap: int, out_cap: int, impl: str = "kernel",
+                found: list | None = None) -> Bindings:
     """One cascading MAPSIN iteration (Algorithm 1) on local data."""
     plan = make_plan(pattern, bindings.vars)
     k, match, missed = probe(plan, keys, bindings.table, bindings.valid,
                              probe_cap, impl)
-    return merge_bindings(bindings, plan, k, match, missed, out_cap)
+    return merge_bindings(bindings, plan, k, match, missed, out_cap, found)
 
 
 def multiway_step(bindings: Bindings, patterns: Sequence, keys: torch.Tensor,
-                  row_cap: int, out_cap: int, impl: str = "kernel") -> Bindings:
+                  row_cap: int, out_cap: int, impl: str = "kernel",
+                  found: list | None = None) -> Bindings:
     """Optimized multiway star join (Algorithm 3): ONE row-GET per input
     mapping answers all patterns sharing the join variable on the primary
     position; per-pattern predicate filters are applied to the fetched row.
@@ -226,13 +241,13 @@ def multiway_step(bindings: Bindings, patterns: Sequence, keys: torch.Tensor,
     hi = torch.where(bindings.valid, hi, 0)
     k, in_row, missed = gather_range(keys, lo, hi, row_cap, impl)
     return multiway_merge(bindings, plans, k, in_row, missed, row_cap,
-                          out_cap)
+                          out_cap, found)
 
 
 def multiway_merge(bindings: Bindings, plans: Sequence[PatternPlan],
                    k: torch.Tensor, in_row: torch.Tensor,
                    missed: torch.Tensor, row_cap: int,
-                   out_cap: int) -> Bindings:
+                   out_cap: int, found: list | None = None) -> Bindings:
     """The tail of the multiway star join after its row-GET (k, in_row,
     missed) (B, row_cap): per-pattern filtering of the fetched row and
     the iterative merge. Shared by ``multiway_step`` and the distributed
@@ -263,7 +278,8 @@ def multiway_merge(bindings: Bindings, plans: Sequence[PatternPlan],
         ori = cur_origin[:, None, None].expand(out.capacity, row_cap, 1)
         rows = torch.cat([old] + new_cols + [ori], dim=-1)
         table, vmask, dropped = compact(
-            rows.reshape(out.capacity * row_cap, -1), mm.reshape(-1), out_cap)
+            rows.reshape(out.capacity * row_cap, -1), mm.reshape(-1), out_cap,
+            found=found)
         cur_origin = table[:, -1]
         out = Bindings(out.vars + plan.out_var_names, table[:, :-1], vmask,
                        out.overflow + dropped)

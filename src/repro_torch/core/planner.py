@@ -31,6 +31,7 @@ import torch
 from repro_torch.core.plan import make_plan, probe_ranges
 from repro_torch.core.rdf import BITS, INF_KEY, Pattern, is_var
 from repro_torch.core.triple_store import TripleStore
+from repro_torch.obs.trace import Tracer, optional_span
 
 # operator sets: the full planner vocabulary, and the subset a seeded
 # template cascade can express (reduce_side re-scans relations with an
@@ -158,7 +159,8 @@ def pattern_cardinality(store: TripleStore, pat: Pattern) -> int:
 
 
 def relation_stats(store: TripleStore, pat: Pattern,
-                   domain: Sequence[str]) -> tuple[int, int, int]:
+                   domain: Sequence[str],
+                   tracer: Tracer | None = None) -> tuple[int, int, int]:
     """(rows, groups, max_group) of the pattern's relation under `domain`.
 
     ``rows``  — exact cardinality with EVERY constant applied;
@@ -168,7 +170,8 @@ def relation_stats(store: TripleStore, pat: Pattern,
                 the worst-case probe fan-out (what sizes probe caps).
 
     One O(N) host pass per distinct (constants, var-positions) signature,
-    memoized in the store's plan cache."""
+    memoized in the store's plan cache; with a `tracer`, each pass is a
+    ``planner.relation_stats`` span."""
     plan = make_plan(pat, domain)
     consts = tuple(sorted(
         (pos, v) for pos, (kind, v) in
@@ -180,19 +183,20 @@ def relation_stats(store: TripleStore, pat: Pattern,
     ck = ("relstats", plan.index, consts, varpos)
     if ck in store.plan_cache:
         return store.plan_cache[ck]
-    fields = _host_fields(store, plan.index)
-    mask = np.ones(fields[0].shape, bool)
-    for pos, v in consts:
-        mask = mask & (fields[pos] == v)
-    rows = int(mask.sum())
-    if not varpos or rows == 0:
-        out = (rows, 1 if rows else 0, rows)
-    else:
-        combo = np.zeros(rows, np.int64)
-        for pos in varpos:
-            combo = (combo << BITS) | fields[pos][mask]
-        counts = np.unique(combo, return_counts=True)[1]
-        out = (rows, int(len(counts)), int(counts.max()))
+    with optional_span(tracer, "planner.relation_stats", index=plan.index):
+        fields = _host_fields(store, plan.index)
+        mask = np.ones(fields[0].shape, bool)
+        for pos, v in consts:
+            mask = mask & (fields[pos] == v)
+        rows = int(mask.sum())
+        if not varpos or rows == 0:
+            out = (rows, 1 if rows else 0, rows)
+        else:
+            combo = np.zeros(rows, np.int64)
+            for pos in varpos:
+                combo = (combo << BITS) | fields[pos][mask]
+            counts = np.unique(combo, return_counts=True)[1]
+            out = (rows, int(len(counts)), int(counts.max()))
     store.plan_cache[ck] = out
     return out
 
@@ -230,26 +234,28 @@ def order_patterns(patterns: Sequence[Pattern], reorder: bool = True,
 
 
 def _join_selectivity(store: TripleStore, pat: Pattern,
-                      domain: Sequence[str]) -> tuple[float, int, int]:
+                      domain: Sequence[str],
+                      tracer: Tracer | None = None) -> tuple[float, int, int]:
     """(avg matches per probe, relation rows, max probe fan-out) of `pat`
     joined against `domain`: rows/groups under the containment
     assumption; a pattern sharing no domain variable degrades to the full
     relation (cross product)."""
-    rows, groups, mx = relation_stats(store, pat, domain)
+    rows, groups, mx = relation_stats(store, pat, domain, tracer)
     bound = set(pat.variables) & set(domain)
     avg = rows / groups if (bound and groups) else float(rows)
     return avg, rows, mx
 
 
-def _order_cost(store: TripleStore, order: Sequence[Pattern]) -> float:
+def _order_cost(store: TripleStore, order: Sequence[Pattern],
+                tracer: Tracer | None = None) -> float:
     """Estimated rows touched by a left-deep execution of `order`: scan
     rows + per-join (probes issued + rows produced)."""
-    rows0, _, _ = relation_stats(store, order[0], ())
+    rows0, _, _ = relation_stats(store, order[0], (), tracer)
     est = float(rows0)
     cost = est
     domain = list(order[0].variables)
     for pat in order[1:]:
-        avg, _, _ = _join_selectivity(store, pat, domain)
+        avg, _, _ = _join_selectivity(store, pat, domain, tracer)
         out = est * avg
         cost += est + out
         est = out
@@ -262,40 +268,42 @@ def _order_cost(store: TripleStore, order: Sequence[Pattern]) -> float:
 _EXHAUSTIVE_LIMIT = 6    # <= 6 patterns: all left-deep orders (<= 720)
 
 
-def cost_order(store: TripleStore, patterns: Sequence[Pattern]
-               ) -> tuple[list[Pattern], float]:
+def cost_order(store: TripleStore, patterns: Sequence[Pattern],
+               tracer: Tracer | None = None) -> tuple[list[Pattern], float]:
     """Cost-based join order: exhaustive left-deep search for small BGPs,
     greedy (min incremental cost among connected candidates) beyond.
     Deterministic: cost ties break on the original pattern order."""
     pats = list(patterns)
     if len(pats) <= 1:
-        c = (float(relation_stats(store, pats[0], ())[0]) if pats else 0.0)
+        c = (float(relation_stats(store, pats[0], (), tracer)[0])
+             if pats else 0.0)
         return pats, c
     if len(pats) <= _EXHAUSTIVE_LIMIT:
         best_key, best = None, None
         for perm in itertools.permutations(range(len(pats))):
             order = [pats[i] for i in perm]
-            key = (_order_cost(store, order), perm)
+            key = (_order_cost(store, order, tracer), perm)
             if best_key is None or key < best_key:
                 best_key, best = key, order
         return best, best_key[0]
     # greedy: cheapest seed, then min incremental cost among connected
     remaining = list(range(len(pats)))
     first = min(remaining,
-                key=lambda i: (relation_stats(store, pats[i], ())[0], i))
+                key=lambda i: (relation_stats(store, pats[i], (), tracer)[0],
+                               i))
     order = [pats[first]]
     remaining.remove(first)
     domain = list(pats[first].variables)
-    est = float(relation_stats(store, pats[first], ())[0])
+    est = float(relation_stats(store, pats[first], (), tracer)[0])
     cost = est
     while remaining:
         def incr(i):
-            avg, _, _ = _join_selectivity(store, pats[i], domain)
+            avg, _, _ = _join_selectivity(store, pats[i], domain, tracer)
             return est + est * avg
         connected = [i for i in remaining
                      if set(pats[i].variables) & set(domain)]
         nxt = min(connected or remaining, key=lambda i: (incr(i), i))
-        avg, _, _ = _join_selectivity(store, pats[nxt], domain)
+        avg, _, _ = _join_selectivity(store, pats[nxt], domain, tracer)
         cost += est + est * avg
         est = est * avg
         order.append(pats[nxt])
@@ -370,7 +378,8 @@ def compile_plan(store: TripleStore | None, patterns, caps: Caps = Caps(),
                  multiway: bool = True, reorder: bool = True,
                  operators: tuple[str, ...] = ALL_OPERATORS,
                  routing: str = "broadcast", num_shards: int = 0,
-                 route_shards: int = 10) -> PhysicalPlan:
+                 route_shards: int = 10,
+                 tracer: Tracer | None = None) -> PhysicalPlan:
     """The LogicalPlan -> PhysicalPlan compiler.
 
     `patterns` may be a LogicalPlan or a Pattern sequence. `ordering` is
@@ -385,6 +394,10 @@ def compile_plan(store: TripleStore | None, patterns, caps: Caps = Caps(),
     (``embed_a2a_caps``): one instrumented run of this plan, cached per
     plan on the store, sizes the per-destination probe buckets and the
     answer legs.
+
+    With a `tracer`, a plan the store's plan cache does not hold is
+    compiled inside a ``planner.compile`` span, each statistics pass it
+    makes a ``planner.relation_stats`` child.
     """
     if isinstance(patterns, LogicalPlan):
         patterns = patterns.patterns
@@ -401,75 +414,81 @@ def compile_plan(store: TripleStore | None, patterns, caps: Caps = Caps(),
         hit = store.plan_cache.get(ck)
         if hit is not None:
             return hit
-    if not reorder:
-        ordered, chosen = list(patterns), "given"
-        cost = (_order_cost(store, ordered) if store is not None
-                else float("nan"))
-    elif ordering == "cost" and store is not None:
-        ordered, cost, chosen = *cost_order(store, patterns), "cost"
-    else:
-        ordered = order_patterns(patterns, True, store)
-        cost = (_order_cost(store, ordered) if store is not None
-                else float("nan"))
-        chosen = "heuristic"
-
-    groups = _group_multiway(ordered, multiway)
-    steps: list[PlanStep] = []
-    domain: list[str] = []
-    var_order: list[str] = []
-    est = 0.0
-    for kind, pats in groups:
-        est_in = est
-        fan_max = 0
-        if kind == "scan":
-            est = (float(relation_stats(store, pats[0], ())[0])
-                   if store is not None else 0.0)
+    with optional_span(tracer, "planner.compile"):
+        if not reorder:
+            ordered, chosen = list(patterns), "given"
+            cost = (_order_cost(store, ordered, tracer)
+                    if store is not None else float("nan"))
+        elif ordering == "cost" and store is not None:
+            ordered, cost, chosen = (*cost_order(store, patterns, tracer),
+                                     "cost")
         else:
-            if mode == "reduce":
-                kind = "reduce_side"
-            for pat in pats:
-                if store is None:
-                    continue
-                avg, _, mx = _join_selectivity(store, pat, domain)
-                est = est * avg
-                fan_max = max(fan_max, mx)
-            if (kind == "mapsin" and mode != "reduce"
-                    and "reduce_side" in operators and store is not None):
-                kind = _maybe_reduce_side(store, pats[0], domain, caps)
-        scaps = caps
-        if kind == "reduce_side" and mode != "reduce" and store is not None:
-            # right-size the sort-merge per-row match budget: the merge
-            # windows on the SINGLE join-key column, so the budget must
-            # cover the relation's max group per join-key VALUE
-            shared = [v for v in pats[0].variables if v in domain]
-            fan_key = (relation_stats(store, pats[0], (shared[0],))[2]
-                       if shared else fan_max)
-            scaps = dataclasses.replace(
-                caps, probe_cap=max(caps.probe_cap,
-                                    quantize_cap(min(max(fan_key, 1),
-                                                     caps.out_cap))))
-        clamp = lambda x: int(min(x, 1e18))
-        steps.append(PlanStep(kind, pats, scaps, clamp(est_in), clamp(est),
-                              fan_max))
-        new = _step_out_vars(kind, pats, domain)
-        domain.extend(v for p in pats for v in p.variables
-                      if v not in domain)
-        var_order.extend(new)
-    plan = PhysicalPlan(tuple(steps), tuple(var_order),
-                        float(cost) if cost == cost else 0.0, chosen,
-                        route_shards)
-    # a positive a2a_bucket_cap is an explicit pin (the drop-free
-    # override) — it skips the measurement pass entirely
-    if (num_shards > 0 and routing == "a2a" and mode != "reduce"
-            and caps.a2a_bucket_cap == 0 and store is not None):
-        plan = embed_a2a_caps(store, plan, caps, num_shards)
+            ordered = order_patterns(patterns, True, store)
+            cost = (_order_cost(store, ordered, tracer)
+                    if store is not None else float("nan"))
+            chosen = "heuristic"
+
+        groups = _group_multiway(ordered, multiway)
+        steps: list[PlanStep] = []
+        domain: list[str] = []
+        var_order: list[str] = []
+        est = 0.0
+        for kind, pats in groups:
+            est_in = est
+            fan_max = 0
+            if kind == "scan":
+                est = (float(relation_stats(store, pats[0], (), tracer)[0])
+                       if store is not None else 0.0)
+            else:
+                if mode == "reduce":
+                    kind = "reduce_side"
+                for pat in pats:
+                    if store is None:
+                        continue
+                    avg, _, mx = _join_selectivity(store, pat, domain,
+                                                   tracer)
+                    est = est * avg
+                    fan_max = max(fan_max, mx)
+                if (kind == "mapsin" and mode != "reduce"
+                        and "reduce_side" in operators and store is not None):
+                    kind = _maybe_reduce_side(store, pats[0], domain, caps,
+                                              tracer)
+            scaps = caps
+            if (kind == "reduce_side" and mode != "reduce"
+                    and store is not None):
+                # right-size the sort-merge per-row match budget: the merge
+                # windows on the SINGLE join-key column, so the budget must
+                # cover the relation's max group per join-key VALUE
+                shared = [v for v in pats[0].variables if v in domain]
+                fan_key = (relation_stats(store, pats[0], (shared[0],),
+                                          tracer)[2]
+                           if shared else fan_max)
+                scaps = dataclasses.replace(
+                    caps, probe_cap=max(caps.probe_cap,
+                                        quantize_cap(min(max(fan_key, 1),
+                                                         caps.out_cap))))
+            clamp = lambda x: int(min(x, 1e18))
+            steps.append(PlanStep(kind, pats, scaps, clamp(est_in),
+                                  clamp(est), fan_max))
+            new = _step_out_vars(kind, pats, domain)
+            domain.extend(v for p in pats for v in p.variables
+                          if v not in domain)
+            var_order.extend(new)
+        plan = PhysicalPlan(tuple(steps), tuple(var_order),
+                            float(cost) if cost == cost else 0.0, chosen,
+                            route_shards)
+        # a positive a2a_bucket_cap is an explicit pin (the drop-free
+        # override) — it skips the measurement pass entirely
+        if (num_shards > 0 and routing == "a2a" and mode != "reduce"
+                and caps.a2a_bucket_cap == 0 and store is not None):
+            plan = embed_a2a_caps(store, plan, caps, num_shards)
     if ck is not None:
         store.plan_cache[ck] = plan
     return plan
 
 
 def _maybe_reduce_side(store: TripleStore, pat: Pattern, domain: list[str],
-                       caps: Caps) -> str:
+                       caps: Caps, tracer: Tracer | None = None) -> str:
     """Per-step operator fallback: keep ``mapsin`` unless (a) the probe
     plan has NO bound key prefix — a residual-only join — or (b) the
     relation's measured max probe fan-out blows the probe-cap budget while
@@ -481,7 +500,7 @@ def _maybe_reduce_side(store: TripleStore, pat: Pattern, domain: list[str],
         return "mapsin"
     if not plan.prefix:
         return "reduce_side"
-    rows, _, mx = relation_stats(store, pat, domain)
+    rows, _, mx = relation_stats(store, pat, domain, tracer)
     if mx > caps.probe_cap and rows <= caps.scan_cap:
         return "reduce_side"
     return "mapsin"

@@ -20,7 +20,7 @@ _INT32_MAX = 2 ** 31 - 1
 
 def sort_merge_join(lt, lv, rt, rv, lkey_col: int, rkey_col: int,
                     extra_eq: list[tuple[int, int]], r_out_cols: list[int],
-                    probe_cap: int, out_cap: int):
+                    probe_cap: int, out_cap: int, found: list | None = None):
     """Local equi-join of two fixed-capacity row tables on one key column.
 
     Returns (table, valid, dropped) with columns = left cols + r_out_cols.
@@ -44,7 +44,8 @@ def sort_merge_join(lt, lv, rt, rv, lkey_col: int, rkey_col: int,
     lrows = lt[:, None, :].expand(lt.shape[0], probe_cap, lt.shape[1])
     cols = [lrows] + [rrows[..., c][..., None] for c in r_out_cols]
     rows = torch.cat(cols, dim=-1).reshape(lt.shape[0] * probe_cap, -1)
-    table, vmask, dropped = compact(rows, match.reshape(-1), out_cap)
+    table, vmask, dropped = compact(rows, match.reshape(-1), out_cap,
+                                    found=found)
     dropped = dropped + torch.where(lv, missed, 0).sum().to(torch.int32)
     return table, vmask, dropped
 
@@ -86,11 +87,13 @@ def dist_reduce_step(bnd: Bindings, pattern, local_keys, scan_cap: int,
 
 def local_reduce_step(bnd: Bindings, pattern, keys, scan_cap: int,
                       probe_cap: int, out_cap: int,
-                      impl: str = "kernel") -> Bindings:
-    """Single-shard reduce-side join (no shuffle — functional baseline)."""
+                      impl: str = "kernel",
+                      found: list | None = None) -> Bindings:
+    """Single-shard reduce-side join (no shuffle — functional baseline).
+    `found` goes to the join's ``compact`` (mapsin.py)."""
     rel = scan_pattern(pattern, keys, scan_cap, impl)
     lcol, rcol, extra_eq, r_out, new_vars = _join_columns(bnd, rel, pattern)
     table, vmask, dropped = sort_merge_join(
         bnd.table, bnd.valid, rel.table, rel.valid, lcol, rcol, extra_eq,
-        r_out, probe_cap, out_cap)
+        r_out, probe_cap, out_cap, found)
     return Bindings(new_vars, table, vmask, bnd.overflow + rel.overflow + dropped)

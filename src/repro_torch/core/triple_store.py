@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.common import ceil_div, resolve_device
 from repro_torch.core.rdf import INF_KEY, pack3
+from repro_torch.obs.trace import Tracer, optional_span
 
 SPO, OPS = 0, 1  # index ids (paper Table 3 chooses between them per pattern)
 
@@ -167,24 +168,32 @@ def store_from_numpy(keys_spo, keys_ops, splits_spo, splits_ops, counts_spo,
 
 
 def build_store(triples: np.ndarray, num_shards: int = 1,
-                device="cuda") -> TripleStore:
+                device="cuda", tracer: Tracer | None = None) -> TripleStore:
     """triples: (N, 3) int32. Bulk load (the paper's Table 4 operation).
     The index tensors go to `device`; the default is the card, and asking
-    for it on a host without CUDA raises."""
+    for it on a host without CUDA raises. With a `tracer`, the load is a
+    ``store.build`` span over ``store.sort`` (packing and sorting both
+    orders on the host), ``store.dedup`` and ``store.upload`` (the
+    shards' padding and the copy to `device`)."""
     device = resolve_device(device, "build_store")
-    s, p, o = triples[:, 0], triples[:, 1], triples[:, 2]
-    k_spo = np.sort(pack3(s, p, o))
-    k_ops = np.sort(pack3(o, p, s))
-    if len(k_spo) and k_spo[-1] == INF_KEY:
-        # (MAX_ID, MAX_ID, MAX_ID) packs to the INF_KEY padding sentinel:
-        # indistinguishable from padding and unfindable. The Dictionary
-        # reserves id MAX_ID so encoded data can never hit this.
-        raise ValueError("triple (MAX_ID, MAX_ID, MAX_ID) packs to the "
-                         "INF_KEY sentinel and cannot be stored")
-    # dedup (RDF set semantics)
-    k_spo = np.unique(k_spo)
-    k_ops = np.unique(k_ops)
-    spo, sp_splits, sp_counts = _shard_sorted(k_spo, num_shards)
-    ops, op_splits, op_counts = _shard_sorted(k_ops, num_shards)
-    return store_from_numpy(spo, ops, sp_splits, op_splits, sp_counts,
-                            op_counts, len(k_spo), device=device)
+    with optional_span(tracer, "store.build", triples=len(triples)):
+        with optional_span(tracer, "store.sort"):
+            s, p, o = triples[:, 0], triples[:, 1], triples[:, 2]
+            k_spo = np.sort(pack3(s, p, o))
+            k_ops = np.sort(pack3(o, p, s))
+        if len(k_spo) and k_spo[-1] == INF_KEY:
+            # (MAX_ID, MAX_ID, MAX_ID) packs to the INF_KEY padding
+            # sentinel: indistinguishable from padding and unfindable. The
+            # Dictionary reserves id MAX_ID so encoded data can never hit
+            # this.
+            raise ValueError("triple (MAX_ID, MAX_ID, MAX_ID) packs to the "
+                             "INF_KEY sentinel and cannot be stored")
+        with optional_span(tracer, "store.dedup"):   # RDF set semantics
+            k_spo = np.unique(k_spo)
+            k_ops = np.unique(k_ops)
+        with optional_span(tracer, "store.upload"):
+            spo, sp_splits, sp_counts = _shard_sorted(k_spo, num_shards)
+            ops, op_splits, op_counts = _shard_sorted(k_ops, num_shards)
+            return store_from_numpy(spo, ops, sp_splits, op_splits,
+                                    sp_counts, op_counts, len(k_spo),
+                                    device=device)

@@ -17,11 +17,13 @@ directly. Two kinds of span, matching the two shapes of serving work:
   without one trace thread per request.
 
 The tracer is deliberately dumb and allocation-light: ``begin``/``end``
-append plain ``Span`` records stamped with a monotonic clock
-(``time.perf_counter``); nothing is formatted until ``export``. The
-serving engine holds ``tracer=None`` by default and guards every hook
-with one ``is not None`` test — the off path adds no work (overhead
-policy: DESIGN.md §8).
+append plain ``Span`` records stamped with ``clock`` (the Unix clock, in
+seconds); nothing is formatted until ``export``. torch.profiler (Kineto)
+stamps its host and device events on the same clock, in nanoseconds, so
+``to_ns(span.t0)`` places a span on a device trace. The serving engine,
+the SPARQL front end, the planner, ``execute_local`` and ``build_store``
+take ``tracer=None`` by default and guard every hook with one ``is not
+None`` test — the off path adds no work (overhead policy: DESIGN.md §8).
 """
 from __future__ import annotations
 
@@ -29,6 +31,34 @@ import contextlib
 import json
 import time
 from typing import Any, Callable
+
+
+def clock_ns() -> int:
+    """The one clock of every span, in ns: the Unix clock, the clock
+    torch.profiler stamps its host and CUDA events on."""
+    return time.time_ns()
+
+
+def clock() -> float:
+    """``clock_ns`` in seconds, the unit of a ``Span``'s stamps (a float
+    holds a Unix time to a quarter of a microsecond)."""
+    return time.time_ns() / 1e9
+
+
+def to_ns(t: float) -> int:
+    """A stamp of ``clock`` back in ``clock_ns``'s nanoseconds (within
+    half a microsecond)."""
+    return round(t * 1e9)
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def optional_span(tracer: "Tracer | None", name: str, **attrs: Any):
+    """``tracer.span(name, **attrs)``, or, when `tracer` is None, a
+    context that records nothing and yields None: a hook's one ``is not
+    None`` test."""
+    return _NO_SPAN if tracer is None else tracer.span(name, **attrs)
 
 
 class Span:
@@ -69,16 +99,12 @@ class Tracer:
 
     ``begin``/``end`` handle non-lexical spans (a query span opens in
     ``submit`` and closes in a later ``step``); the ``span`` context
-    manager handles lexical ones and maintains a parent stack.
-    ``torch_profiler=True`` additionally brackets ``device_bracket``
-    regions with ``torch.profiler.record_function`` (and an NVTX range on
-    a CUDA device) so engine dispatches line up with the kernels on
-    torch.profiler's own timeline."""
+    manager handles lexical ones and maintains a parent stack. Spans
+    are stamped on ``clock`` unless another clock is given (the tests'
+    fake clocks)."""
 
-    def __init__(self, clock: Callable[[], float] = time.perf_counter,
-                 torch_profiler: bool = False):
+    def __init__(self, clock: Callable[[], float] = clock):
         self._clock = clock
-        self.torch_profiler = torch_profiler
         self.spans: list[Span] = []
         self._open: dict[int, Span] = {}
         self._stack: list[Span] = []
@@ -129,20 +155,6 @@ class Tracer:
         finally:
             self._stack.pop()
             self.end(sp)
-
-    def device_bracket(self, name: str, device=None):
-        """Optional profiler annotation around a dispatch: a no-op context
-        manager unless ``torch_profiler=True``; then a
-        ``torch.profiler.record_function`` range, and an NVTX range too
-        when `device` is a CUDA device."""
-        if not self.torch_profiler:
-            return contextlib.nullcontext()
-        import torch
-        stack = contextlib.ExitStack()
-        stack.enter_context(torch.profiler.record_function(name))
-        if device is not None and torch.device(device).type == "cuda":
-            stack.enter_context(torch.cuda.nvtx.range(name))
-        return stack
 
     # --- introspection ---------------------------------------------------
 
@@ -275,7 +287,8 @@ def spans_from_stats(tracer: Tracer, stats: list, parent: Span | None = None,
                      track: str = "engine",
                      async_id: int | None = None) -> list[Span]:
     """Convert the per-step dicts of an instrumented ``execute_local``
-    run (which now stamp ``t0``/``t1`` on the tracer clock) into
+    run (which stamp ``t0``/``t1`` on ``clock``, the default tracer
+    clock) into
     per-cascade-step child spans. Pass ``async_id`` when the parent
     lives on a per-query async lane so the children render in it."""
     out = []

@@ -73,7 +73,6 @@ with non-truncating caps the row sets are identical.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import logging
 import time
@@ -926,25 +925,15 @@ class ServeEngine:
             tid, template, batch, bucket_cap, step_caps, fsel, with_check)
         store = self.store
         dev_consts = torch.as_tensor(consts, device=store.device)
-        # optional profiler bracket: lines the engine dispatch up with the
-        # kernels on torch.profiler's timeline when the tracer was built
-        # with torch_profiler=True; a nullcontext otherwise
-        bracket = (self.tracer.device_bracket(
-                       f"serve_dispatch/t{tid}b{batch}", store.device)
-                   if self.tracer is not None else contextlib.nullcontext())
         if self.mesh is None:
             out_cap = template.steps[0].caps.out_cap
             scratch = self._scratch(scratch_vars, batch, out_cap)
-            with bracket:
-                out = fn(store.flat_keys(0), store.flat_keys(1), dev_consts,
-                         scratch.table, scratch.valid, scratch.overflow)
-                table, valid, overflow, step_ovf = (t.cpu().numpy()
-                                                    for t in out)
+            out = fn(store.flat_keys(0), store.flat_keys(1), dev_consts,
+                     scratch.table, scratch.valid, scratch.overflow)
+            table, valid, overflow, step_ovf = (t.cpu().numpy() for t in out)
             return table[None], valid[None], overflow[None], step_ovf[None], 0
-        with bracket:
-            shards = fn(dev_consts)
-            t, v, o, so, bad = (torch.stack(x).cpu().numpy()
-                                for x in zip(*shards))
+        shards = fn(dev_consts)
+        t, v, o, so, bad = (torch.stack(x).cpu().numpy() for x in zip(*shards))
         self.a2a_payload_bytes += self._payload_bytes(bucket_cap, step_caps)
         # (S, n_steps, batch) -> (S, batch, n_steps)
         return t, v, o, np.transpose(so, (0, 2, 1)), int(bad.sum())
@@ -1020,8 +1009,8 @@ class ServeEngine:
         for _ in range(8):
             tries += 1
             # traced fallbacks run the instrumented path: per-step wall
-            # stamps become cascade_step child spans (tracer clock ==
-            # perf_counter, the stats path's stamp clock)
+            # stamps become cascade_step child spans (the stats path
+            # stamps on obs.trace.clock, the default tracer clock)
             step_stats = [] if fsp is not None else None
             bnd = execute_local(self.store, r.patterns, self.mode, self.cfg,
                                 caps, stats=step_stats)

@@ -15,6 +15,7 @@ import dataclasses
 import re
 
 from repro_torch.core.rdf import Dictionary, Pattern
+from repro_torch.obs.trace import Tracer, optional_span
 
 # SPARQL keywords outside the BGP fragment -> named rejection
 _NON_BGP = frozenset({
@@ -114,9 +115,16 @@ def _resolve_const(term_str: str, d: Dictionary, what: str) -> int:
     return tid
 
 
-def parse_bgp(text: str, d: Dictionary) -> ParsedQuery:
+def parse_bgp(text: str, d: Dictionary,
+              tracer: Tracer | None = None) -> ParsedQuery:
     """Parse ``[PREFIX ...]* SELECT (?v... | *) WHERE { triples }`` into
-    Patterns whose constants are resolved through ``d`` (read-only)."""
+    Patterns whose constants are resolved through ``d`` (read-only); with
+    a `tracer`, inside a ``sparql.parse`` span."""
+    with optional_span(tracer, "sparql.parse"):
+        return _parse_bgp(text, d)
+
+
+def _parse_bgp(text: str, d: Dictionary) -> ParsedQuery:
     _reject_non_bgp(text)
     cur = _Cursor(_tokenize(text))
     prefixes: dict[str, str] = {}

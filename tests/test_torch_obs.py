@@ -6,10 +6,10 @@ tracer nesting, double end and coverage, Chrome JSON export and load,
 ``validate_events`` and ``spans_from_stats``. Both run on a fake clock, so
 the Prometheus text, the snapshots and the trace events must be equal."""
 import itertools
+import time
 
 import numpy as np
 import pytest
-import torch
 
 import repro.obs as jobs
 from repro.obs import trace as jtrace
@@ -227,14 +227,15 @@ def test_spans_from_stats():
     assert out[0] == out[1]
 
 
-def test_device_bracket_is_off_by_default_and_records_when_on():
+def test_default_clock_is_the_unix_clock_of_the_profiler():
+    """Spans stamp on ``trace.clock`` (the Unix clock torch.profiler
+    stamps its events on) unless another clock is given."""
+    t0 = time.time()
     tr = tobs.Tracer()
-    assert tr.torch_profiler is False
-    with tr.device_bracket("serve_dispatch/t0b1", "cpu"):
-        pass
-    on = tobs.Tracer(torch_profiler=True)
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU]) as prof:
-        with on.device_bracket("serve_dispatch/t0b1", torch.device("cpu")):
-            torch.ones(4).sum()
-    assert any(e.key == "serve_dispatch/t0b1" for e in prof.key_averages())
+    with tr.span("a"):
+        sp = tr.record("b", tr.now(), tr.now())
+    t1 = time.time()
+    a, = tr.find("a")
+    assert t0 <= a.t0 <= sp.t0 <= sp.t1 <= a.t1 <= t1
+    assert abs(ttrace.clock() - time.time()) < 0.01
+    assert not hasattr(tobs.Tracer, "device_bracket")

@@ -587,6 +587,8 @@ def test_exact_fallback_span_tree(graph):
     steps = [s for s in tr.spans if s.name.startswith("cascade_step")
              and s.parent_id == fb.span_id]
     assert steps and all(s.attrs.get("kind") for s in steps)
+    # the instrumented run stamps its steps on the tracer's own clock
+    assert all(fb.t0 <= s.t0 <= s.t1 <= fb.t1 for s in steps)
     for d in tr.find("dispatch"):
         assert by_id[d.parent_id].name == "step"
     snap = reg.to_dict()["counters"]
