@@ -265,6 +265,12 @@ KERNELS = {
     "probe_gather": dict(route="cuda",
                          source="src/repro_torch/csrc/probe_gather.cu",
                          replaces="src/repro/kernels/probe_gather.py:140"),
+    # the GET and the MAPSIN merge in one (probe_count_kernel, a scan,
+    # probe_emit_kernel): replaces no TPU kernel, but probe_gather's call
+    # and merge_bindings' capacity-sized temporaries in mapsin_step
+    "probe_compact": dict(route="cuda",
+                          source="src/repro_torch/csrc/probe_gather.cu",
+                          replaces=None),
     "flash_attention": dict(route="cuda",
                             source="src/repro_torch/csrc/flash_attention.cu",
                             replaces="src/repro/kernels/flash_attention.py:73"),
@@ -607,10 +613,9 @@ def fuzz_searchsorted(torch, ops, rdf, seed: int, floor) -> dict:
     return {"mismatches": mism + bad, "max_abs_err": err}
 
 
-def fuzz_probe_gather(torch, ops, rdf, seed: int) -> dict:
-    """All eight flt_mask combinations, with and without eq_positions, fat
-    rows (range > cap), empty, degenerate (lo >= hi) and invalid-row
-    ranges, caps from 8 to 256."""
+def probe_fuzz_inputs(torch, rdf, seed: int):
+    """(keys, lo, hi, flt, g): fat rows (range > cap), empty, degenerate
+    (lo >= hi), invalid-row and whole-index ranges, and the generator."""
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     dev = "cuda"
     m = 200_000
@@ -639,7 +644,14 @@ def fuzz_probe_gather(torch, ops, rdf, seed: int) -> dict:
     lo = torch.where(kind == 4, 0, lo)                       # whole index
     hi = torch.where(kind == 4, rdf.INF_KEY, hi)
     flt = torch.stack([r(3005, b), r(7, b), r(9, b)], 1).contiguous()
-    lo, hi = lo.contiguous(), hi.contiguous()
+    return keys, lo.contiguous(), hi.contiguous(), flt, g
+
+
+def fuzz_probe_gather(torch, ops, rdf, seed: int) -> dict:
+    """All eight flt_mask combinations, with and without eq_positions, over
+    every kind of range of `probe_fuzz_inputs`, caps from 8 to 256."""
+    keys, lo, hi, flt, _ = probe_fuzz_inputs(torch, rdf, seed)
+    b = lo.numel()
     mism = cases = 0
     for cap in (8, 12, 33, 64, 128, 256):
         for fm in range(8):
@@ -652,6 +664,43 @@ def fuzz_probe_gather(torch, ops, rdf, seed: int) -> dict:
     torch.cuda.synchronize()
     log(f"[kernels] probe_gather: {cases} cases (caps 8..256, 8 flt masks, "
         f"4 eq sets), M={keys.numel()} B={b} mismatches={mism}")
+    return {"mismatches": mism, "max_abs_err": 0 if mism == 0 else None}
+
+
+def fuzz_probe_compact(torch, ops, rdf, seed: int) -> dict:
+    """probe_compact's kernels against its plain version, bit for bit, on
+    `probe_fuzz_inputs`' ranges with a binding table of 3 columns: caps
+    from 8 to 256, 8 flt masks, 4 eq sets, 0 to 3 new fields, an out_cap
+    that holds every match and one that cuts; then 4 slots under vmap."""
+    keys, lo, hi, flt, g = probe_fuzz_inputs(torch, rdf, seed)
+    b = lo.numel()
+    table = torch.randint(0, 1 << 20, (b, 3), generator=g, device="cuda",
+                          dtype=torch.int32)
+    news = ((), (2,), (1, 2), (0, 1, 2))
+    mism = cases = 0
+    for cap in (8, 12, 33, 64, 128, 256):
+        for fm in range(8):
+            msk = tuple(bool(fm >> i & 1) for i in range(3))
+            for eq in ((), ((0, 2),), ((1, 2),), ((0, 1), (0, 2))):
+                for out_cap in (b * cap, 1000):
+                    args = (keys, lo, hi, flt, table, cap, out_cap, msk, eq,
+                            news[(fm + cap) % 4])
+                    got = ops.probe_compact(*args, "kernel")
+                    want = ops.probe_compact(*args, "torch")
+                    cases += 1
+                    mism += sum(int((x != y).sum()) for x, y in zip(got, want))
+    slots = [x[:4000].reshape(4, 1000, *x.shape[1:])
+             for x in (lo, hi, flt, table)]
+    call = lambda impl: lambda a, c, f, t: ops.probe_compact(
+        keys, a, c, f, t, 64, 500, (False, True, False), (), (0, 2), impl)
+    got = torch.func.vmap(call("kernel"))(*slots)
+    for i in range(4):
+        want = call("torch")(*(x[i] for x in slots))
+        mism += sum(int((x[i] != y).sum()) for x, y in zip(got, want))
+    torch.cuda.synchronize()
+    log(f"[kernels] probe_compact: {cases} cases (caps 8..256, 8 flt masks, "
+        f"4 eq sets, out_cap all or 1000) + 4 slots under vmap, "
+        f"M={keys.numel()} B={b} mismatches={mism}")
     return {"mismatches": mism, "max_abs_err": 0 if mism == 0 else None}
 
 
@@ -798,9 +847,12 @@ def run_main_path(torch, args, failures: list) -> dict:
             ms=wall_ms(torch, lambda: execute_local(store, plan, cfg=kern)))
     main_launches = dict(ops.launches)
     log(f"[main] kernel launches over the main path: {main_launches}")
-    for k in ("searchsorted", "probe_gather"):
+    for k in ("searchsorted", "probe_compact"):
         if main_launches[k] <= 0:
             failures.append(f"main path never launched the {k} kernel")
+    if main_launches["probe_gather"]:
+        failures.append("main path launched probe_gather: mapsin_step's GET "
+                        "is probe_compact's")
 
     ops.reset_launches()
     for name, rec in per_query.items():
@@ -820,7 +872,7 @@ def run_main_path(torch, args, failures: list) -> dict:
         rec["ms_reduce"] = wall_ms(torch, run)
 
     log(f"{'query':6s} {'steps':34s} {'rows':>7s} {'kernel_ms':>10s} "
-        f"{'torch_ms':>10s} {'reduce_ms':>10s} {'ss':>3s} {'pg':>3s}  identical")
+        f"{'torch_ms':>10s} {'reduce_ms':>10s} {'ss':>3s} {'pc':>3s}  identical")
     for name, rec in per_query.items():
         bk, bt = rec["bk"], rec["bt"]
         same = (bk.vars == bt.vars and torch.equal(bk.table, bt.table)
@@ -839,7 +891,7 @@ def run_main_path(torch, args, failures: list) -> dict:
         log(f"{name:6s} {kinds:34s} {rows:7d} {rec['ms']:10.3f} "
             f"{rec['ms_torch']:10.3f} {rec['ms_reduce']:10.3f} "
             f"{rec['launches']['searchsorted']:3d} "
-            f"{rec['launches']['probe_gather']:3d}  {same}{note}")
+            f"{rec['launches']['probe_compact']:3d}  {same}{note}")
     for name in ("Q1", "Q4", "Q8"):
         if name in plans:
             profile_query(torch, lambda p=plans[name]: execute_local(
@@ -869,8 +921,9 @@ def profile_query(torch, run, name: str, reps: int = 3) -> None:
 def time_kernels(torch, main: dict, fuzz: dict, floor) -> list:
     """Each kernel at the inputs the main path gives it, recorded from one
     execute_local run: the first rank-find of the first query with a
-    multiway step (beside the streaming floor), and the first GET of the
-    first query with a mapsin step."""
+    multiway step (beside the streaming floor), and the first mapsin step
+    of the first query with one: probe_compact, and probe_gather at the
+    same GET."""
     from repro_torch.core import ExecConfig, execute_local
     from repro_torch.kernels import ops
     store, plans = main["store"], main["plans"]
@@ -903,10 +956,10 @@ def time_kernels(torch, main: dict, fuzz: dict, floor) -> list:
                           f"M={keys.numel()} Q={q.numel()} "
                           f"distinct={t['distinct']}"))
 
-    name, x = args_of("probe_gather", "mapsin")
+    name, x = args_of("probe_compact", "mapsin")
     keys, lo, hi, flt, cap = x["keys"], x["lo"], x["hi"], x["flt"], x["cap"]
-    msk = x["flt_mask"]
-    args = (keys, lo, hi, flt, cap, msk, x["eq_positions"])
+    msk, eq, table = x["flt_mask"], x["eq_positions"], x["table"]
+    args = (keys, lo, hi, flt, cap, msk, eq)
     got = ops.probe_gather(*args, "kernel")
     want = ops.probe_gather(*args, "torch")
     err = int((got[0] - want[0]).abs().max())
@@ -925,8 +978,9 @@ def time_kernels(torch, main: dict, fuzz: dict, floor) -> list:
     # flt_mask positions of each probe whose range holds a key, the
     # in-range keys the slots take, and the outputs (keys, flags, missed)
     # written once
-    nbytes = (b * 16 + live * 2 * depth * 8 + nonempty * sum(msk) * 8
-              + in_range * 8 + b * cap * 9 + b * 4)
+    needed = (b * 16 + live * 2 * depth * 8 + nonempty * sum(msk) * 8
+              + in_range * 8 + b * 4)
+    nbytes = needed + b * cap * 9
     out.append(dict(name="probe_gather", **KERNELS["probe_gather"],
                     launches=main["launches"]["probe_gather"],
                     max_abs_err=err, mismatches=fz["probe_gather"]["mismatches"]
@@ -937,6 +991,32 @@ def time_kernels(torch, main: dict, fuzz: dict, floor) -> list:
                           f"cap={cap} flt_mask={msk} live_probes={live} "
                           f"nonempty_probes={nonempty} "
                           f"in_range_keys={in_range}"))
+
+    # probe_compact at the same step: the GET and the merge in one
+    out_cap, new_pos = x["out_cap"], tuple(x["new_pos"])
+    cargs = (keys, lo, hi, flt, table, cap, out_cap, msk, eq, new_pos)
+    got = ops.probe_compact(*cargs, "kernel")
+    want = ops.probe_compact(*cargs, "torch")
+    err = int((got[0] - want[0]).abs().max())
+    mism = sum(int((a != b).sum()) for a, b in zip(got, want))
+    t_k = cuda_ms(torch, lambda: ops.probe_compact(*cargs, "kernel"))
+    t_p = cuda_ms(torch, lambda: ops.probe_compact(*cargs, "torch"), iters=3)
+    total = int(got[3]) + out_cap
+    kept = min(total, out_cap)
+    w = table.shape[1] + len(new_pos)
+    # the same inputs as probe_gather's (less its outputs), the bindings of
+    # the kept rows read once, the step's table and flags written once
+    nbytes = needed + kept * table.shape[1] * 4 + out_cap * (w * 4 + 1)
+    out.append(dict(name="probe_compact", **KERNELS["probe_compact"],
+                    launches=main["launches"]["probe_compact"],
+                    max_abs_err=err, mismatches=fz["probe_compact"]["mismatches"]
+                    + mism, ms=t_k, plain_ms=t_p,
+                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                    library_ms=None,
+                    shape=f"{name}, first mapsin step: M={keys.numel()} B={b} "
+                          f"cap={cap} out_cap={out_cap} nv={table.shape[1]} "
+                          f"new={new_pos} live_probes={live} "
+                          f"in_range_keys={in_range} matches={total}"))
     for k in out[1:]:                  # searchsorted's: time_searchsorted
         log(f"[timing] {k['name']}: {k['shape']}: ms={k['ms']:.6f} "
             f"plain_ms={k['plain_ms']:.6f} bound_ms={k['bound_ms']:.6f} "
@@ -1122,7 +1202,7 @@ def run_engine_serving(torch, args, lubm: dict, failures: list) -> None:
             out = _orig(tid, template, batch, *a)
             per_dispatch.append((_t, tid, template, batch, tuple(
                 ops.launches[k] - before[k]
-                for k in ("searchsorted", "probe_gather"))))
+                for k in ("searchsorted", "probe_compact"))))
             return out
         e._dispatch = counted
     ops.reset_launches()
@@ -1134,7 +1214,7 @@ def run_engine_serving(torch, args, lubm: dict, failures: list) -> None:
         f"requests, first run): {first['dispatches']} dispatches, kernel "
         f"launches {serve_launches}, vmap folds {folds}, "
         f"{first['wall']:.3f} s")
-    for k in ("searchsorted", "probe_gather"):
+    for k in ("searchsorted", "probe_compact"):
         if serve_launches[k] <= 0:
             failures.append(f"serve: the engine never launched the {k} "
                             f"kernel")
@@ -1196,7 +1276,7 @@ def run_engine_serving(torch, args, lubm: dict, failures: list) -> None:
         torch.cuda.synchronize()
         one = (ops.launches["searchsorted"] - before["searchsorted"]
                + seed_launches(template),
-               ops.launches["probe_gather"] - before["probe_gather"])
+               ops.launches["probe_compact"] - before["probe_compact"])
         counts = set().union(*seen.values())
         lines.append(f"{t}:t{tid} {'+'.join(st.kind for st in template.steps)}"
                      f" batches {sorted(seen)} -> {sorted(counts)} "
@@ -1205,7 +1285,7 @@ def run_engine_serving(torch, args, lubm: dict, failures: list) -> None:
             failures.append(f"serve: {t} template t{tid}: launches per "
                             f"dispatch {sorted(counts)} at batches "
                             f"{sorted(seen)}, one query launches {one}")
-    log("[serve] launches (searchsorted, probe_gather) per dispatch by "
+    log("[serve] launches (searchsorted, probe_compact) per dispatch by "
         "template: " + "; ".join(lines))
 
     # saturated replay on warmed engines beside the sequential loop
@@ -5030,6 +5110,7 @@ def main() -> int:
         fuzz["searchsorted"] = fuzz_searchsorted(torch, ops, rdf, args.seed,
                                                  floor)
         fuzz["probe_gather"] = fuzz_probe_gather(torch, ops, rdf, args.seed)
+        fuzz["probe_compact"] = fuzz_probe_compact(torch, ops, rdf, args.seed)
         fuzz["flash_attention"] = fuzz_flash_attention(torch, ops, args.seed)
         for k, rec in fuzz.items():
             if rec["mismatches"]:

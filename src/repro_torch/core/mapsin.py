@@ -6,7 +6,8 @@ Everything here operates on one shard's data with static shapes:
     never silent).
   * ``scan_pattern``    — the distributed-table-scan input phase (§4.1)
   * ``probe``           — the index GET: binary-search range + gather + filter
-  * ``mapsin_step``     — Algorithm 1 (one cascading iteration)
+  * ``mapsin_step``     — Algorithm 1 (one cascading iteration): the GET
+                          and the merge in one ``probe_compact``
   * ``multiway_step``   — Algorithms 2+3 (star joins, single row-GET)
 
 No function here syncs the host: every count stays a device tensor, and
@@ -141,18 +142,28 @@ def probe(plan: PatternPlan, keys: torch.Tensor, table: torch.Tensor,
     the fused probe_gather (kernels/ops.py): the CUDA kernel on the card,
     its plain version otherwise. Match keys are 0 at invalid slots.
     """
-    lo, hi = probe_ranges(plan, table)
-    lo = torch.where(row_valid, lo, 0)
-    hi = torch.where(row_valid, hi, 0)   # invalid rows probe an empty range
-    flt, msk = residual_values(plan, table)
+    lo, hi, flt, msk = probe_inputs(plan, table, row_valid)
     return ops.probe_gather(keys, lo, hi, flt, cap, msk, plan.eq_positions,
                             impl)
 
 
-def merge_bindings(bindings: Bindings, plan: PatternPlan, k: torch.Tensor,
-                   match: torch.Tensor, missed: torch.Tensor,
-                   out_cap: int, found: list | None = None) -> Bindings:
-    """Merge mu_n with compatible mappings (Alg. 1 lines 11-17).
+def probe_inputs(plan: PatternPlan, table: torch.Tensor,
+                 row_valid: torch.Tensor):
+    """Each binding's GET: (lo, hi) (B,) int64, [0, 0) for an invalid row,
+    and the residual values (B, 3) with their (3,) mask."""
+    lo, hi = probe_ranges(plan, table)
+    lo = torch.where(row_valid, lo, 0)
+    hi = torch.where(row_valid, hi, 0)   # invalid rows probe an empty range
+    flt, msk = residual_values(plan, table)
+    return lo, hi, flt, msk
+
+
+def merge_matches(table: torch.Tensor, k: torch.Tensor, match: torch.Tensor,
+                  new_pos: tuple, out_cap: int, found: list | None = None):
+    """The rows of the matches (B, cap) of bindings `table` (B, nv):
+    (table (out_cap, nv + len(new_pos)), valid mask, n_dropped int32), each
+    match's binding followed by its key's fields at `new_pos`, in (probe,
+    slot) order, zeros past the kept rows.
 
     Only the ORIGIN index plus the <= 3 newly bound columns are compacted;
     the surviving old columns are gathered once at the end. Origins of
@@ -163,14 +174,25 @@ def merge_bindings(bindings: Bindings, plan: PatternPlan, k: torch.Tensor,
     t = unpack3(k)
     origin = torch.arange(bcap, dtype=torch.int32,
                           device=k.device)[:, None].expand(bcap, cap)
-    cols = [origin] + [t[pos].to(torch.int32) for _, pos in plan.out_vars]
+    cols = [origin] + [t[pos].to(torch.int32) for pos in new_pos]
     rows = torch.stack([c.reshape(-1) for c in cols], dim=1)
-    valid = (match & bindings.valid[:, None]).reshape(-1)
-    packed, vmask, dropped = compact(rows, valid, out_cap, found=found)
-    table = bindings.table[packed[:, 0].long()]
-    if plan.out_vars:
-        table = torch.cat([table, packed[:, 1:]], dim=1)
-    table = torch.where(vmask[:, None], table, 0)
+    packed, vmask, dropped = compact(rows, match.reshape(-1), out_cap,
+                                     found=found)
+    out = table[packed[:, 0].long()]
+    if new_pos:
+        out = torch.cat([out, packed[:, 1:]], dim=1)
+    return torch.where(vmask[:, None], out, 0), vmask, dropped
+
+
+def merge_bindings(bindings: Bindings, plan: PatternPlan, k: torch.Tensor,
+                   match: torch.Tensor, missed: torch.Tensor,
+                   out_cap: int, found: list | None = None) -> Bindings:
+    """Merge mu_n with compatible mappings (Alg. 1 lines 11-17): the rows
+    of ``merge_matches``, for the distributed steps, whose matches come
+    from a collective (core/distributed.py)."""
+    table, vmask, dropped = merge_matches(
+        bindings.table, k, match & bindings.valid[:, None],
+        tuple(pos for _, pos in plan.out_vars), out_cap, found)
     overflow = (bindings.overflow + dropped
                 + torch.where(bindings.valid, missed, 0).sum().to(torch.int32))
     return Bindings(bindings.vars + plan.out_var_names, table, vmask, overflow)
@@ -216,11 +238,19 @@ def scan_pattern(pattern, keys: torch.Tensor, out_cap: int,
 def mapsin_step(bindings: Bindings, pattern, keys: torch.Tensor,
                 probe_cap: int, out_cap: int, impl: str = "kernel",
                 found: list | None = None) -> Bindings:
-    """One cascading MAPSIN iteration (Algorithm 1) on local data."""
+    """One cascading MAPSIN iteration (Algorithm 1) on local data: the GET
+    and the merge in one ``probe_compact`` (kernels/ops.py), which on the
+    card writes the step's rows with no (B, probe_cap) temporary."""
     plan = make_plan(pattern, bindings.vars)
-    k, match, missed = probe(plan, keys, bindings.table, bindings.valid,
-                             probe_cap, impl)
-    return merge_bindings(bindings, plan, k, match, missed, out_cap, found)
+    lo, hi, flt, msk = probe_inputs(plan, bindings.table, bindings.valid)
+    table, vmask, dropped, over, missed = ops.probe_compact(
+        keys, lo, hi, flt, bindings.table, probe_cap, out_cap, msk,
+        plan.eq_positions, tuple(pos for _, pos in plan.out_vars), impl)
+    if found is not None:
+        found.append((over, bindings.capacity * probe_cap, out_cap))
+    # an invalid binding probes [0, 0), so misses nothing
+    overflow = bindings.overflow + dropped + missed.sum().to(torch.int32)
+    return Bindings(bindings.vars + plan.out_var_names, table, vmask, overflow)
 
 
 def multiway_step(bindings: Bindings, patterns: Sequence, keys: torch.Tensor,

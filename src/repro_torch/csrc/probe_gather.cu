@@ -34,6 +34,20 @@
 // invalid binding) skips both searches: no slot can be in range and
 // missed is 0, exactly what the searches would give. A probe whose range
 // holds no key reads no filter value.
+//
+// probe_compact (probe_count_kernel, a scan of the counts, then
+// probe_emit_kernel) replaces no TPU kernel: it is the same GET with the
+// MAPSIN merge behind it (core/mapsin.py `merge_matches`), so a mapsin
+// step writes its rows, (probe, slot) order and out_cap cut included,
+// without the (B, cap) keys and flags above and the 2^27-row passes the
+// merge made over them. What bounds it on this card: bytes again, but a
+// few MB: each probe's lo and hi, its count, offset and missed count, the
+// live probes' searches and in-range keys (read twice, once a pass), and
+// the step's table written once (2^20 rows of up to 6 int32 at the main
+// path's shapes). Most probes are dead (an invalid binding), so both
+// passes take one probe a thread and spend warp-wide work only on the
+// probes that have keys; the count pass is latency-bound on the live
+// probes' searches, like the kernel above.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -54,6 +68,36 @@ __device__ __forceinline__ int64_t lower_bound(const int64_t* __restrict__ keys,
     }
   }
   return lo;
+}
+
+// The residual values of probe p at the positions set in flt_mask.
+__device__ __forceinline__ void load_filter(const int64_t* __restrict__ flt,
+                                            int64_t p, int flt_mask,
+                                            int64_t& f0, int64_t& f1,
+                                            int64_t& f2) {
+  if (flt_mask & 1) f0 = flt[3 * p + 0];
+  if (flt_mask & 2) f1 = flt[3 * p + 1];
+  if (flt_mask & 4) f2 = flt[3 * p + 2];
+}
+
+// Whether a key's three `bits`-wide fields equal the residual values at
+// the flt_mask positions and each other across every eq_mask repeat.
+__device__ __forceinline__ bool residual_ok(int64_t key, int64_t f0,
+                                            int64_t f1, int64_t f2,
+                                            int flt_mask, int eq_mask,
+                                            int bits) {
+  const int64_t field = (int64_t{1} << bits) - 1;
+  const int64_t k0 = (key >> (2 * bits)) & field;
+  const int64_t k1 = (key >> bits) & field;
+  const int64_t k2 = key & field;
+  bool ok = true;
+  if (flt_mask & 1) ok = ok && (k0 == f0);
+  if (flt_mask & 2) ok = ok && (k1 == f1);
+  if (flt_mask & 4) ok = ok && (k2 == f2);
+  if (eq_mask & 1) ok = ok && (k0 == k1);
+  if (eq_mask & 2) ok = ok && (k0 == k2);
+  if (eq_mask & 4) ok = ok && (k1 == k2);
+  return ok;
 }
 
 __global__ void probe_gather_kernel(const int64_t* __restrict__ keys, int64_t m,
@@ -85,14 +129,11 @@ __global__ void probe_gather_kernel(const int64_t* __restrict__ keys, int64_t m,
     missed[w] = static_cast<int32_t>(over > 0 ? over : 0);
   }
 
-  const int64_t field = (int64_t{1} << bits) - 1;
   int64_t f0 = 0;
   int64_t f1 = 0;
   int64_t f2 = 0;
   if (start < end) {                  // only the filter values the slots test
-    if (flt_mask & 1) f0 = flt[3 * w + 0];
-    if (flt_mask & 2) f1 = flt[3 * w + 1];
-    if (flt_mask & 4) f2 = flt[3 * w + 2];
+    load_filter(flt, w, flt_mask, f0, f1, f2);
   }
   int64_t* row_k = out_k + w * cap;
   bool* row_v = out_valid + w * cap;
@@ -102,18 +143,166 @@ __global__ void probe_gather_kernel(const int64_t* __restrict__ keys, int64_t m,
     int64_t key = 0;
     if (ok) {
       key = __ldg(keys + idx);
-      const int64_t k0 = (key >> (2 * bits)) & field;
-      const int64_t k1 = (key >> bits) & field;
-      const int64_t k2 = key & field;
-      if (flt_mask & 1) ok = ok && (k0 == f0);
-      if (flt_mask & 2) ok = ok && (k1 == f1);
-      if (flt_mask & 4) ok = ok && (k2 == f2);
-      if (eq_mask & 1) ok = ok && (k0 == k1);
-      if (eq_mask & 2) ok = ok && (k0 == k2);
-      if (eq_mask & 4) ok = ok && (k1 == k2);
+      ok = residual_ok(key, f0, f1, f2, flt_mask, eq_mask, bits);
     }
     row_k[c] = ok ? key : 0;
     row_v[c] = ok;
+  }
+}
+
+constexpr unsigned kAll = 0xffffffffu;
+
+// probe_compact, pass 1 of 2. One thread per probe, 32 probes a warp: each
+// lane reads its probe's lo and hi (one coalesced read a warp) and, where
+// lo < hi, ranks both. A dead probe costs that read and its two stores.
+// Then the warp takes the probes whose range holds a key one at a time,
+// its lanes on neighbouring keys, and counts the keys that pass the
+// residual by ballot. Writes count[p] (matches among the first `cap` keys
+// of the range), missed[p] as probe_gather_kernel does, and start[p]
+// where count[p] > 0.
+__global__ void probe_count_kernel(const int64_t* __restrict__ keys, int64_t m,
+                                   const int64_t* __restrict__ lo,
+                                   const int64_t* __restrict__ hi,
+                                   const int64_t* __restrict__ flt, int64_t n,
+                                   int cap, int flt_mask, int eq_mask, int bits,
+                                   int64_t* __restrict__ start_out,
+                                   int32_t* __restrict__ count,
+                                   int32_t* __restrict__ missed) {
+  const int lane = threadIdx.x & 31;
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (p - lane >= n) return;          // whole warps exit together
+  const bool in = p < n;
+  int64_t start = 0;
+  int64_t end = 0;
+  if (in) {
+    const int64_t qlo = lo[p];
+    const int64_t qhi = hi[p];
+    if (qlo < qhi) {
+      start = lower_bound(keys, m, qlo);
+      end = lower_bound(keys, m, qhi);
+    }
+  }
+  const bool any = start < end;
+  int64_t f0 = 0;
+  int64_t f1 = 0;
+  int64_t f2 = 0;
+  if (any) load_filter(flt, p, flt_mask, f0, f1, f2);
+  int32_t mine = 0;
+  for (unsigned todo = __ballot_sync(kAll, any); todo; todo &= todo - 1) {
+    const int j = __ffs(todo) - 1;
+    const long long s = __shfl_sync(kAll, static_cast<long long>(start), j);
+    const long long e = __shfl_sync(kAll, static_cast<long long>(end), j);
+    const long long g0 = __shfl_sync(kAll, static_cast<long long>(f0), j);
+    const long long g1 = __shfl_sync(kAll, static_cast<long long>(f1), j);
+    const long long g2 = __shfl_sync(kAll, static_cast<long long>(f2), j);
+    const long long n_in = e - s < cap ? e - s : cap;
+    int32_t got = 0;
+    for (long long c0 = 0; c0 < n_in; c0 += 32) {
+      const long long c = c0 + lane;  // s + c < e <= m: the read is in bounds
+      const bool ok = c < n_in && residual_ok(__ldg(keys + s + c), g0, g1, g2,
+                                              flt_mask, eq_mask, bits);
+      got += __popc(__ballot_sync(kAll, ok));
+    }
+    if (lane == j) mine = got;
+  }
+  if (in) {
+    count[p] = mine;
+    const int64_t over = end - start - cap;
+    missed[p] = static_cast<int32_t>(over > 0 ? over : 0);
+    if (mine > 0) start_out[p] = start;
+  }
+}
+
+// probe_compact, pass 2 of 2, after the exclusive offsets off = incl -
+// count of a scan of each slot's counts. blockIdx.y is the slot: its b
+// probes, its out_cap rows of w = nv + n_new int32 columns. Thread t of a
+// slot writes row t's flag, element t of the slot's table where it lies
+// past the kept rows (zero), and, for probe t with matches and off <
+// out_cap, the warp re-reads the probe's keys from start, ranks the
+// passing ones by ballot and popcount, and writes each kept match at row
+// off + rank: the binding's nv columns from `table`, then the fields of
+// the key at the n_new positions packed two bits each in new_pos. The
+// matches are the first count[p] that pass from start, so the scan stops
+// once it has them (or at the end of the keys); the rank of any key that
+// passes beyond the range is at least count[p], and it is not written.
+// Rows go in (probe, slot) order with no atomics: the first out_cap of a
+// slot are kept, as a cumulative count over (probe, slot) keeps them.
+__global__ void probe_emit_kernel(const int64_t* __restrict__ keys, int64_t m,
+                                  const int64_t* __restrict__ flt,
+                                  const int32_t* __restrict__ table, int nv,
+                                  const int64_t* __restrict__ start,
+                                  const int32_t* __restrict__ count,
+                                  const int32_t* __restrict__ incl, int64_t b,
+                                  int out_cap, int flt_mask, int eq_mask,
+                                  int bits, int new_pos, int n_new,
+                                  int32_t* __restrict__ out,
+                                  bool* __restrict__ out_valid,
+                                  int32_t* __restrict__ dropped,
+                                  int32_t* __restrict__ over) {
+  const int lane = threadIdx.x & 31;
+  const int64_t slot = blockIdx.y;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int w = nv + n_new;
+  const int32_t total = incl[slot * b + b - 1];
+  const int64_t kept = total < out_cap ? total : out_cap;
+  int32_t* slot_out = out + slot * out_cap * w;
+  if (t < out_cap) out_valid[slot * out_cap + t] = t < kept;
+  if (t >= kept * w && t < static_cast<int64_t>(out_cap) * w) slot_out[t] = 0;
+  if (t == 0) {
+    over[slot] = total - out_cap;
+    dropped[slot] = total > out_cap ? total - out_cap : 0;
+  }
+  if (t - lane >= b) return;          // whole warps exit together
+  const int64_t p = slot * b + t;
+  int32_t cnt = 0;
+  int32_t off = 0;
+  if (t < b) {
+    cnt = count[p];
+    off = incl[p] - cnt;
+  }
+  const bool emit = cnt > 0 && off < out_cap;
+  int64_t s = 0;
+  int64_t f0 = 0;
+  int64_t f1 = 0;
+  int64_t f2 = 0;
+  if (emit) {
+    s = start[p];
+    load_filter(flt, p, flt_mask, f0, f1, f2);
+  }
+  const int64_t field = (int64_t{1} << bits) - 1;
+  const unsigned below = (1u << lane) - 1;
+  for (unsigned todo = __ballot_sync(kAll, emit); todo; todo &= todo - 1) {
+    const int j = __ffs(todo) - 1;
+    const long long sj = __shfl_sync(kAll, static_cast<long long>(s), j);
+    const long long g0 = __shfl_sync(kAll, static_cast<long long>(f0), j);
+    const long long g1 = __shfl_sync(kAll, static_cast<long long>(f1), j);
+    const long long g2 = __shfl_sync(kAll, static_cast<long long>(f2), j);
+    const int32_t offj = __shfl_sync(kAll, off, j);
+    const int32_t cntj = __shfl_sync(kAll, cnt, j);
+    const int32_t limit = cntj < out_cap - offj ? cntj : out_cap - offj;
+    const int32_t* src = table + (p - lane + j) * nv;
+    int32_t* dst = slot_out + static_cast<int64_t>(offj) * w;
+    int32_t done = 0;
+    for (long long c0 = 0; done < limit && sj + c0 < m; c0 += 32) {
+      const long long idx = sj + c0 + lane;
+      int64_t key = 0;
+      bool ok = idx < m;
+      if (ok) {
+        key = __ldg(keys + idx);
+        ok = residual_ok(key, g0, g1, g2, flt_mask, eq_mask, bits);
+      }
+      const unsigned hits = __ballot_sync(kAll, ok);
+      const int32_t rank = done + __popc(hits & below);
+      if (ok && rank < limit) {
+        int32_t* row = dst + static_cast<int64_t>(rank) * w;
+        for (int q = 0; q < nv; ++q) row[q] = src[q];
+        for (int q = 0; q < n_new; ++q) {
+          const int pos = (new_pos >> (2 * q)) & 3;
+          row[nv + q] = static_cast<int32_t>((key >> ((2 - pos) * bits)) & field);
+        }
+      }
+      done += __popc(hits);
+    }
   }
 }
 
@@ -136,5 +325,54 @@ extern "C" int probe_gather_i64(const void* keys, int64_t m, const void* lo,
       static_cast<const int64_t*>(hi), static_cast<const int64_t*>(flt), b,
       cap, flt_mask, eq_mask, bits, static_cast<int64_t*>(out_k),
       static_cast<bool*>(out_valid), static_cast<int32_t*>(missed));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// probe_compact's passes over s slots of b probes (n = s * b), for the
+// wrapper kernels/probe_gather.py `probe_compact_cuda`, which scans the
+// counts between them. new_pos: the new fields' positions, two bits each.
+extern "C" int probe_count_i64(const void* keys, int64_t m, const void* lo,
+                               const void* hi, const void* flt, int64_t n,
+                               int cap, int flt_mask, int eq_mask, int bits,
+                               void* start, void* count, void* missed,
+                               void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 256;
+  const int64_t blocks = (n + threads - 1) / threads;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  probe_count_kernel<<<static_cast<unsigned int>(blocks), threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(keys), m, static_cast<const int64_t*>(lo),
+      static_cast<const int64_t*>(hi), static_cast<const int64_t*>(flt), n,
+      cap, flt_mask, eq_mask, bits, static_cast<int64_t*>(start),
+      static_cast<int32_t*>(count), static_cast<int32_t*>(missed));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int probe_emit_i64(const void* keys, int64_t m, const void* flt,
+                              const void* table, int nv, const void* start,
+                              const void* count, const void* incl, int64_t s,
+                              int64_t b, int out_cap, int flt_mask,
+                              int eq_mask, int bits, int new_pos, int n_new,
+                              void* out, void* out_valid, void* dropped,
+                              void* over, void* stream) {
+  if (s <= 0 || b <= 0) return 0;
+  const int threads = 256;
+  int64_t span = static_cast<int64_t>(out_cap) * (nv + n_new);
+  if (span < out_cap) span = out_cap;
+  if (span < b) span = b;
+  const int64_t blocks = (span + threads - 1) / threads;
+  if (blocks > 0x7fffffff || s > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned int>(blocks),
+                  static_cast<unsigned int>(s));
+  probe_emit_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(keys), m, static_cast<const int64_t*>(flt),
+      static_cast<const int32_t*>(table), nv,
+      static_cast<const int64_t*>(start), static_cast<const int32_t*>(count),
+      static_cast<const int32_t*>(incl), b, out_cap, flt_mask, eq_mask, bits,
+      new_pos, n_new, static_cast<int32_t*>(out), static_cast<bool*>(out_valid),
+      static_cast<int32_t*>(dropped), static_cast<int32_t*>(over));
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,9 +6,12 @@ or raises; for a tensor on the CPU, where the kernel cannot run, it takes
 the plain PyTorch version. ``impl="torch"`` takes the plain version on any
 device. There is no fallback from a failed launch.
 
-The two index kernels are ``torch.library`` custom ops,
-``repro_torch::searchsorted`` and ``repro_torch::probe_gather``: the CPU
-implementation is the plain version and the CUDA one the kernel's launch.
+The index kernels are ``torch.library`` custom ops,
+``repro_torch::searchsorted``, ``repro_torch::probe_gather`` and
+``repro_torch::probe_compact`` (the GET and the MAPSIN merge in one: its
+two kernels and the scan between them, one launch in ``launches``): the
+CPU implementation is the plain version and the CUDA one the kernel's
+launch.
 Each has a ``torch.func.vmap`` rule for the serving engine, which runs one
 query's cascade under ``vmap`` for a whole batch of same-template queries:
 the store's keys are shared by every slot, so the rule folds the batch
@@ -35,11 +38,12 @@ from repro_torch.kernels import searchsorted as _ss
 
 IMPLS = ("kernel", "torch")
 
-launches = {"searchsorted": 0, "probe_gather": 0, "flash_attention": 0}
+launches = {"searchsorted": 0, "probe_gather": 0, "probe_compact": 0,
+            "flash_attention": 0}
 # flash_attention's launches by kernel: "wgmma" (tensor cores) or "simt"
 flash_attention_variants = {"wgmma": 0, "simt": 0}
 # calls of a vmap rule that folded a batch into one call of the op
-vmap_folds = {"searchsorted": 0, "probe_gather": 0}
+vmap_folds = {"searchsorted": 0, "probe_gather": 0, "probe_compact": 0}
 _count_lock = threading.Lock()
 
 
@@ -179,6 +183,84 @@ def probe_gather(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                                       eq_positions)
     return _probe_gather_op(keys, lo, hi, flt, int(cap),
                             *_pg.encode_masks(flt_mask, eq_positions))
+
+
+# --- probe_compact ----------------------------------------------------------
+# The op takes a leading slot dimension, S slots of B probes each compacted
+# into its own out_cap rows, so that its vmap rule folds a batch into S.
+
+
+@torch.library.custom_op("repro_torch::probe_compact", mutates_args=(),
+                         device_types="cpu")
+def _probe_compact_op(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                      flt: torch.Tensor, table: torch.Tensor, cap: int,
+                      out_cap: int, fmask: int, eq_mask: int,
+                      new_pos: list[int]) -> tuple[torch.Tensor, torch.Tensor,
+                                                   torch.Tensor, torch.Tensor,
+                                                   torch.Tensor]:
+    masks = _pg.decode_masks(fmask, eq_mask)
+    slots = [_pg.probe_compact_plain(keys, lo[i], hi[i], flt[i], table[i], cap,
+                                     out_cap, *masks, tuple(new_pos))
+             for i in range(lo.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*slots))
+
+
+@_probe_compact_op.register_kernel("cuda")
+def _probe_compact_launch(keys, lo, hi, flt, table, cap, out_cap, fmask,
+                          eq_mask, new_pos):
+    out = _pg.probe_compact_cuda(keys, lo, hi, flt, table, cap, out_cap,
+                                 *_pg.decode_masks(fmask, eq_mask),
+                                 tuple(new_pos))
+    _count(launches, "probe_compact", int(lo.numel() > 0))
+    return out
+
+
+@_probe_compact_op.register_fake
+def _(keys, lo, hi, flt, table, cap, out_cap, fmask, eq_mask, new_pos):
+    s, b = lo.shape
+    i32 = dict(dtype=torch.int32)
+    return (lo.new_empty((s, out_cap, table.shape[2] + len(new_pos)), **i32),
+            lo.new_empty((s, out_cap), dtype=torch.bool),
+            lo.new_empty((s,), **i32), lo.new_empty((s,), **i32),
+            lo.new_empty((s, b), **i32))
+
+
+def _probe_compact_vmap(info, in_dims, keys, lo, hi, flt, table, cap, out_cap,
+                        fmask, eq_mask, new_pos):
+    _shared_keys("probe_compact", in_dims)
+    n = info.batch_size
+    s = _slot_shape(lo, in_dims[1])[0]
+    folded = [_fold(x, d, n) for x, d in zip((lo, hi, flt, table),
+                                             in_dims[1:5])]
+    _count(vmap_folds, "probe_compact")
+    outs = _probe_compact_op(keys, *folded, cap, out_cap, fmask, eq_mask,
+                             new_pos)
+    return tuple(o.view(n, s, *o.shape[1:]) for o in outs), (0,) * 5
+
+
+_probe_compact_op.register_vmap(_probe_compact_vmap)
+
+
+def probe_compact(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                  flt: torch.Tensor, table: torch.Tensor, cap: int,
+                  out_cap: int, flt_mask: tuple = (False, False, False),
+                  eq_positions: tuple = (), new_pos: tuple = (),
+                  impl: str = "kernel"):
+    """The MAPSIN GET and merge of bindings `table` (B, nv) int32 probing
+    [lo, hi) (invalid bindings [0, 0)): (table (out_cap, nv +
+    len(new_pos)) int32, valid (out_cap,) bool, dropped () int32, over ()
+    int32, missed (B,) int32), equal to ``merge_bindings`` over
+    ``probe_gather``'s outputs (kernels/probe_gather.py)."""
+    _check_impl(impl)
+    if impl == "torch":
+        return _pg.probe_compact_plain(keys, lo, hi, flt, table, cap, out_cap,
+                                       flt_mask, eq_positions, new_pos)
+    outs = _probe_compact_op(
+        keys, lo[None].contiguous(), hi[None].contiguous(),
+        flt[None].contiguous(), table[None].contiguous(), int(cap),
+        int(out_cap), *_pg.encode_masks(flt_mask, eq_positions),
+        list(new_pos))
+    return tuple(o[0] for o in outs)
 
 
 def _flash_attention_forward(q, k, v, causal, scale, impl):

@@ -8,7 +8,19 @@ For B probe ranges [lo, hi) over the sorted int64 index, both return
                           `eq_positions` repeat;
   missed (B,) int32     — max(rank(hi) - rank(lo) - cap, 0), residual-free;
 the contract of the TPU kernel ``repro.kernels.ops.probe_gather``.
-``kernels/ops.py`` chooses between them.
+
+``probe_compact`` is the GET with the MAPSIN merge behind it: for a
+binding table (B, nv) int32 it returns the step's rows themselves,
+  table   (out_cap, nv + len(new_pos)) int32 — in (probe, slot) order, each
+          match's binding followed by its key's fields at `new_pos`, the
+          first `out_cap` kept and zeros after them;
+  valid   (out_cap,) bool; dropped () int32, the matches past out_cap;
+  over    () int32, the matches less out_cap; missed (B,) as above;
+what ``core/mapsin.py`` ``merge_bindings`` makes of ``probe_gather``'s
+outputs, with no (B, cap) temporary on the card: its kernels count each
+probe's matches, scan the counts and write the rows (``csrc/
+probe_gather.cu``). Its plain version is that composition.
+``kernels/ops.py`` chooses between the versions.
 """
 from __future__ import annotations
 
@@ -102,3 +114,97 @@ def probe_gather_cuda(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"probe_gather kernel launch failed: CUDA error {rc}")
     return k, valid, missed
+
+
+def probe_compact_plain(keys: torch.Tensor, lo: torch.Tensor,
+                        hi: torch.Tensor, flt: torch.Tensor,
+                        table: torch.Tensor, cap: int, out_cap: int,
+                        flt_mask: tuple = (False, False, False),
+                        eq_positions: tuple = (), new_pos: tuple = ()):
+    """The plain version: ``probe_gather_plain``, then ``merge_bindings``'
+    arithmetic (core/mapsin.py ``merge_matches``). Returns (table, valid,
+    dropped, over, missed) as described above."""
+    from repro_torch.core.mapsin import merge_matches
+    k, match, missed = probe_gather_plain(keys, lo, hi, flt, cap, flt_mask,
+                                          eq_positions)
+    out, valid, dropped = merge_matches(table, k, match, new_pos, out_cap)
+    over = match.sum(dtype=torch.int32) - out_cap
+    return out, valid, dropped, over, missed
+
+
+@functools.cache
+def _compact_fns():
+    lib = _build.library("probe_gather")
+    count, emit = lib.probe_count_i64, lib.probe_emit_i64
+    p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    count.argtypes = [p, i64, p, p, p, i64, i, i, i, i, p, p, p, p]
+    emit.argtypes = [p, i64, p, p, i, p, p, p, i64, i64, i, i, i, i, i, i,
+                     p, p, p, p, p]
+    count.restype = emit.restype = ctypes.c_int
+    return count, emit
+
+
+def probe_compact_cuda(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                       flt: torch.Tensor, table: torch.Tensor, cap: int,
+                       out_cap: int, flt_mask: tuple = (False, False, False),
+                       eq_positions: tuple = (), new_pos: tuple = ()):
+    """Launch probe_compact's kernels on the current stream for S slots of
+    B probes, each slot compacted into its own out_cap rows. keys: (M,)
+    int64 sorted; lo/hi: (S, B) int64; flt: (S, B, 3) int64; table: (S, B,
+    nv) int32; all contiguous on one CUDA device. Returns (table (S,
+    out_cap, w), valid (S, out_cap), dropped (S,), over (S,), missed (S,
+    B)), each slot as described above."""
+    from repro_torch.core.rdf import BITS
+    check_tensor(keys, "keys", torch.int64, (None,))
+    dev = keys.device
+    check_tensor(lo, "lo", torch.int64, (None, None), dev)
+    s, b = lo.shape
+    check_tensor(hi, "hi", torch.int64, (s, b), dev)
+    check_tensor(flt, "flt", torch.int64, (s, b, 3), dev)
+    check_tensor(table, "table", torch.int32, (s, b, None), dev)
+    cap, out_cap = int(cap), int(out_cap)
+    if not 1 <= cap < 2 ** 31 or not 0 <= out_cap < 2 ** 31:
+        raise ValueError(f"probe_compact: cap must be in [1, 2^31) and "
+                         f"out_cap in [0, 2^31), got {cap} and {out_cap}")
+    if b * cap >= 2 ** 31 or s > 65535:
+        raise ValueError(f"probe_compact: a slot's B * cap must stay below "
+                         f"2^31 and the slots at most 65535, got B={b}, "
+                         f"cap={cap}, {s} slots")
+    if len(new_pos) > 3 or any(q not in (0, 1, 2) for q in new_pos):
+        raise ValueError(f"probe_compact: bad new positions {new_pos}")
+    fmask, eq_mask = encode_masks(flt_mask, eq_positions)
+    nv = table.shape[2]
+    out = torch.empty((s, out_cap, nv + len(new_pos)), dtype=torch.int32,
+                      device=dev)
+    valid = torch.empty((s, out_cap), dtype=torch.bool, device=dev)
+    dropped = torch.empty((s,), dtype=torch.int32, device=dev)
+    over = torch.empty((s,), dtype=torch.int32, device=dev)
+    missed = torch.empty((s, b), dtype=torch.int32, device=dev)
+    if s * b == 0:
+        out.zero_()
+        valid.zero_()
+        dropped.zero_()
+        over.fill_(-out_cap)
+        return out, valid, dropped, over, missed
+    start = torch.empty((s, b), dtype=torch.int64, device=dev)
+    count = torch.empty((s, b), dtype=torch.int32, device=dev)
+    count_fn, emit_fn = _compact_fns()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    packed = sum(q << (2 * i) for i, q in enumerate(new_pos))
+    with torch.cuda.device(dev):
+        rc = count_fn(keys.data_ptr(), keys.numel(), lo.data_ptr(),
+                      hi.data_ptr(), flt.data_ptr(), s * b, cap, fmask,
+                      eq_mask, BITS, start.data_ptr(), count.data_ptr(),
+                      missed.data_ptr(), stream)
+        if rc == 0:
+            incl = torch.cumsum(count, dim=1, dtype=torch.int32)
+            rc = emit_fn(keys.data_ptr(), keys.numel(), flt.data_ptr(),
+                         table.data_ptr(), nv, start.data_ptr(),
+                         count.data_ptr(), incl.data_ptr(), s, b, out_cap,
+                         fmask, eq_mask, BITS, packed, len(new_pos),
+                         out.data_ptr(), valid.data_ptr(), dropped.data_ptr(),
+                         over.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"probe_compact kernel launch failed: CUDA error "
+                           f"{rc}")
+    return out, valid, dropped, over, missed

@@ -14,12 +14,13 @@ import jax.numpy as jnp
 import repro  # noqa: F401  (enables x64 for the reference)
 from repro.core.mapsin import apply_residual as j_apply_residual
 from repro.core.mapsin import gather_range as j_gather_range
-from repro.core.rdf import pack3
+from repro.core.rdf import BITS, MAX_ID, pack3
 from repro.kernels import ops as jops
 
 from repro_torch.core.bgp import ExecConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.probe_gather import probe_gather_cuda
+from repro_torch.kernels.probe_gather import (probe_compact_cuda,
+                                              probe_gather_cuda)
 from repro_torch.kernels.searchsorted import searchsorted_cuda
 
 T = torch.as_tensor
@@ -176,6 +177,10 @@ def test_cuda_wrappers_reject_host_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         probe_gather_cuda(keys, keys, keys, torch.zeros((10, 3),
                                                         dtype=torch.int64), 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        probe_compact_cuda(keys, keys[None], keys[None],
+                           torch.zeros((1, 10, 3), dtype=torch.int64),
+                           torch.zeros((1, 10, 2), dtype=torch.int32), 8, 16)
 
 
 @pytest.mark.gpu
@@ -262,3 +267,138 @@ def test_vmap_rule_shares_unbatched_inputs_and_refuses_batched_keys():
     before = dict(ops.vmap_folds)
     torch.func.vmap(lambda q: ops.searchsorted(keys, q, "torch"))(lo)
     assert ops.vmap_folds == before
+
+
+# --- probe_compact: the GET and the merge in one op -------------------------
+
+NEW_POS = [(), (2,), (1, 2), (0, 1, 2)]
+
+
+def _compact_inputs(seed=13, b=48):
+    """Bindings probing every kind of range: one- and two-field prefixes,
+    the whole index (past any cap: missed), [0, 0) (an invalid binding)
+    and hi < lo (degenerate), over keys with few distinct fields, so
+    residuals and repeats match often."""
+    rng = np.random.RandomState(seed)
+    keys = _distinct_keys(rng, (12, 4, 12), 300)
+    v = rng.randint(0, 13, b).astype(np.int64)
+    p = rng.randint(0, 5, b).astype(np.int64)
+    z = np.zeros(b, np.int64)
+    kind = np.arange(b) % 5
+    lo = np.where(kind == 1, pack3(v, p, z), pack3(v, z, z))
+    hi = np.where(kind == 1, pack3(v, p + 1, z), pack3(v + 1, z, z))
+    lo = np.where(kind == 2, 0, lo)
+    hi = np.where(kind == 2, np.iinfo(np.int64).max, hi)
+    lo, hi = np.where(kind == 3, 0, lo), np.where(kind == 3, 0, hi)
+    hi = np.where(kind == 4, lo - 3, hi)
+    flt = np.stack([rng.randint(0, 12, b), rng.randint(0, 4, b),
+                    rng.randint(0, 12, b)], 1).astype(np.int64)
+    table = rng.randint(0, 1000, (b, 2)).astype(np.int32)
+    return keys, lo, hi, flt, table
+
+
+def _compact_reference(keys, lo, hi, flt, table, cap, out_cap, msk, eq,
+                       new_pos):
+    """The JAX package's jnp GET, then the merge row by row in numpy: each
+    match in (probe, slot) order, its binding and its key's fields at
+    `new_pos`; the first `out_cap` kept."""
+    k, valid, missed = j_gather_range(jnp.asarray(keys), jnp.asarray(lo),
+                                      jnp.asarray(hi), cap)
+    valid = np.asarray(j_apply_residual(k, valid, jnp.asarray(flt), msk, eq))
+    k = np.asarray(k)
+    rows = [list(table[i]) + [(k[i, c] >> ((2 - q) * BITS)) & MAX_ID
+                              for q in new_pos]
+            for i, c in zip(*np.nonzero(valid))]
+    kept = min(len(rows), out_cap)
+    out = np.zeros((out_cap, table.shape[1] + len(new_pos)), np.int32)
+    if kept:
+        out[:kept] = np.asarray(rows[:kept])
+    return (out, np.arange(out_cap) < kept, max(len(rows) - out_cap, 0),
+            len(rows) - out_cap, np.asarray(missed))
+
+
+@pytest.mark.parametrize("out_cap", [512, 3])
+@pytest.mark.parametrize("eq", [(), ((1, 2),), ((0, 2),), ((0, 1), (0, 2))])
+@pytest.mark.parametrize("fm", range(8))
+def test_probe_compact_plain_matches_reference(fm, eq, out_cap):
+    """Both routes of ``probe_compact`` on the CPU (the plain version, and
+    the custom op whose CPU implementation it is) against the JAX
+    package's GET and a merge written out row by row: every filter mask
+    and repeat set, each kind of range, an out_cap cut."""
+    keys, lo, hi, flt, table = _compact_inputs()
+    msk = tuple(bool(fm >> i & 1) for i in range(3))
+    new_pos = NEW_POS[fm % 4]
+    want = _compact_reference(keys, lo, hi, flt, table, 16, out_cap, msk, eq,
+                              new_pos)
+    for impl in ("torch", "kernel"):
+        got = ops.probe_compact(T(keys), T(lo), T(hi), T(flt), T(table), 16,
+                                out_cap, msk, eq, new_pos, impl)
+        assert [g.dtype for g in got] == [torch.int32, torch.bool,
+                                          torch.int32, torch.int32,
+                                          torch.int32]
+        assert got[2].dim() == got[3].dim() == 0
+        for g, w, what in zip(got, want, ("table", "valid", "dropped", "over",
+                                          "missed")):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                          err_msg=f"{impl} {what}")
+    assert (want[2] > 0) == (out_cap == 3) or fm > 0   # 3 cuts, 512 not
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("out_cap", [1024, 5])
+@pytest.mark.parametrize("bdim", [0, 1])
+def test_probe_compact_vmap_compacts_each_slot_alone(bdim, out_cap, shared):
+    """vmap over probe_compact equals the calls slot by slot, each slot cut
+    at its own out_cap, with the batch folded into one call of the op
+    (one launch on a card); a binding table shared by every slot too."""
+    keys, lo, hi, flt = _fold_inputs()
+    n, b = lo.shape
+    table = T(np.random.RandomState(3).randint(0, 99, (n, b, 2)),
+              dtype=torch.int32)
+    if shared:
+        table = table[0]
+    mv = lambda x: x.movedim(0, bdim).contiguous()
+    before = dict(ops.vmap_folds), dict(ops.launches)
+    call = lambda a, c, f, t: ops.probe_compact(
+        keys, a, c, f, t, 8, out_cap, (True, False, False), (), (1, 2))
+    got = torch.func.vmap(call, in_dims=(bdim, bdim, bdim,
+                                         None if shared else bdim))(
+        mv(lo), mv(hi), mv(flt), table if shared else mv(table))
+    for i in range(n):
+        want = call(lo[i], hi[i], flt[i], table if shared else table[i])
+        for g, w in zip(got, want):
+            assert torch.equal(g[i], w)
+    assert ops.vmap_folds["probe_compact"] == before[0]["probe_compact"] + 1
+    assert ops.launches == before[1]             # the CPU runs no kernel
+    assert bool(got[1].any()) and (out_cap > 5 or int(got[2].min()) > 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [8, 33, 128, 256])
+def test_cuda_probe_compact_matches_plain(cap):
+    """The CUDA kernels against the plain version, bit for bit: every filter
+    mask, three repeat sets, each kind of range, an out_cap that cuts and
+    one that does not, one slot and three slots folded under vmap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    keys, lo, hi, flt, table = (T(x, device=dev)
+                                for x in _compact_inputs(cap, 600))
+    for fm in range(8):
+        msk = tuple(bool(fm >> i & 1) for i in range(3))
+        for eq in ((), ((1, 2),), ((0, 2),)):
+            for out_cap in (1 << 14, 37):
+                args = (keys, lo, hi, flt, table, cap, out_cap, msk, eq,
+                        NEW_POS[fm % 4])
+                got = ops.probe_compact(*args, "kernel")
+                want = ops.probe_compact(*args, "torch")
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (fm, eq, out_cap)
+    slots = [x.reshape(3, -1, *x.shape[1:]) for x in (lo, hi, flt, table)]
+    call = lambda impl: lambda a, c, f, t: ops.probe_compact(
+        keys, a, c, f, t, cap, 37, (True, False, False), (), (1, 2), impl)
+    got = torch.func.vmap(call("kernel"))(*slots)
+    for i in range(3):
+        want = call("torch")(*(x[i] for x in slots))
+        for g, w in zip(got, want):
+            assert torch.equal(g[i], w)

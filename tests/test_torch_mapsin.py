@@ -26,6 +26,7 @@ from repro_torch.core import plan as tplan
 from repro_torch.core import reduce_side as trs
 from repro_torch.core.rdf import pattern_from
 from repro_torch.core.triple_store import build_store
+from repro_torch.kernels import ops
 
 P = 100  # predicate ids 100..103
 
@@ -131,6 +132,44 @@ def test_probe_and_merge(seed, pat, domain):
         _same(tms.mapsin_step(tb, pattern_from(pat), ts.flat_keys(tp.index),
                               cap, oc, impl="torch"),
               jms.mapsin_step(jb, pat, js.flat_keys(jp.index), cap, oc))
+
+
+@pytest.mark.parametrize("seed", range(2))
+@pytest.mark.parametrize("pat,domain", PROBES, ids=lambda x: str(x))
+def test_probe_compact_is_the_merge_of_probe(seed, pat, domain):
+    """``mapsin_step``'s one op, both routes, equals ``merge_bindings`` over
+    ``probe``'s outputs, row order, the cut and ``found`` included, and
+    the step equals the JAX package's, with and without a cut."""
+    tr, ts, js = _stores(seed)
+    rng = np.random.RandomState(seed + 20)
+    b, cap = 40, 8
+    table = rng.randint(0, 27, (b, len(domain))).astype(np.int32)
+    valid = rng.rand(b) < 0.7                 # invalid bindings probe [0, 0)
+    tb, jb = _bindings(domain, table, valid, overflow=2)
+    tp = tplan.make_plan(pattern_from(pat), domain)
+    jp = jplan.make_plan(pat, domain)
+    keys = ts.flat_keys(tp.index)
+    k, m, miss = tms.probe(tp, keys, tb.table, tb.valid, cap, impl="torch")
+    lo, hi, flt, msk = tms.probe_inputs(tp, tb.table, tb.valid)
+    new_pos = tuple(pos for _, pos in tp.out_vars)
+    for oc in (128, 5):
+        f_merge, f_step = [], []
+        want = tms.merge_bindings(tb, tp, k, m, miss, oc, found=f_merge)
+        for impl in ("torch", "kernel"):
+            got = ops.probe_compact(keys, lo, hi, flt, tb.table, cap, oc, msk,
+                                    tp.eq_positions, new_pos, impl)
+            assert torch.equal(got[0], want.table)
+            assert torch.equal(got[1], want.valid)
+            assert int(got[3]) == int(f_merge[0][0])
+            assert torch.equal(got[4], miss)
+            assert int(tb.overflow + got[2] + got[4].sum()) == int(
+                want.overflow)
+            step = tms.mapsin_step(tb, pattern_from(pat), keys, cap, oc, impl,
+                                   found=f_step)
+            _same(step, jms.mapsin_step(jb, pat, js.flat_keys(jp.index), cap,
+                                        oc))
+        assert [(int(o), n, c) for o, n, c in f_step] == 2 * [
+            (int(o), n, c) for o, n, c in f_merge]
 
 
 STARS = [(Pattern("?x", P + 1, "?a"), Pattern("?x", P + 2, "?b")),

@@ -646,7 +646,8 @@ def test_dispatch_folds_once_per_step_whatever_the_batch(graph):
             before = dict(ops.vmap_folds)
             eng.precompile(_tq(pats), batches=[b])
             folds.add(tuple(ops.vmap_folds[k] - before[k]
-                            for k in ("searchsorted", "probe_gather")))
+                            for k in ("searchsorted", "probe_gather",
+                                      "probe_compact")))
         assert len(folds) == 1 and sum(next(iter(folds))) > 0
 
 
@@ -678,7 +679,8 @@ def test_kernel_engine_matches_torch_engine_on_the_card(tenants):
             res = _orig(tid, template, batch, *a)
             per_tid.setdefault((_impl, tid), set()).add(
                 tuple(ops.launches[k] - before[k]
-                      for k in ("searchsorted", "probe_gather")))
+                      for k in ("searchsorted", "probe_gather",
+                                "probe_compact")))
             return res
         eng._dispatch = counted
         out[impl] = eng.execute(queries)
@@ -686,7 +688,7 @@ def test_kernel_engine_matches_torch_engine_on_the_card(tenants):
     for (impl, tid), counts in per_tid.items():
         assert len(counts) == 1, (impl, tid, counts)
         assert sum(next(iter(counts))) > 0 if impl == "kernel" else \
-            counts == {(0, 0)}
+            counts == {(0, 0, 0)}
 
 
 # ---------------------------------------------------------------------------
