@@ -271,6 +271,12 @@ KERNELS = {
     "probe_compact": dict(route="cuda",
                           source="src/repro_torch/csrc/probe_gather.cu",
                           replaces=None),
+    # one star pattern's rows from the row-GET's ranks (multiway_count_kernel,
+    # a scan, multiway_emit_kernel): replaces no TPU kernel, but
+    # multiway_merge's (capacity, row_cap) temporaries in multiway_step
+    "multiway_compact": dict(route="cuda",
+                             source="src/repro_torch/csrc/probe_gather.cu",
+                             replaces=None),
     "flash_attention": dict(route="cuda",
                             source="src/repro_torch/csrc/flash_attention.cu",
                             replaces="src/repro/kernels/flash_attention.py:73"),
@@ -704,6 +710,59 @@ def fuzz_probe_compact(torch, ops, rdf, seed: int) -> dict:
     return {"mismatches": mism, "max_abs_err": 0 if mism == 0 else None}
 
 
+def fuzz_multiway_compact(torch, ops, rdf, seed: int) -> dict:
+    """multiway_compact's kernels against its plain version, bit for bit,
+    on `probe_fuzz_inputs`' ranges as the bindings' rows (fat, empty,
+    degenerate, invalid and whole-index), a second set of filter values
+    for the prefix components, and 8000 rows of 3 columns with origins in
+    every binding, a fifth of them invalid: row caps from 8 to 256, 8
+    residual masks, 3 prefix masks, 4 eq sets, 0 to 3 new fields, an
+    out_cap that holds every row and one that cuts; then 4 slots under
+    vmap."""
+    keys, lo, hi, flt, g = probe_fuzz_inputs(torch, rdf, seed)
+    b, r, dev = lo.numel(), 8000, "cuda"
+    start = ops.searchsorted(keys, lo, "torch")
+    end = ops.searchsorted(keys, hi, "torch")
+    ri = lambda hi_, n: torch.randint(0, hi_, (n,), generator=g, device=dev)
+    extra = torch.stack([ri(3005, b), ri(7, b), ri(9, b)], 1).contiguous()
+    origin = ri(b, r).to(torch.int32)
+    table = torch.randint(0, 1 << 20, (r, 3), generator=g, device=dev,
+                          dtype=torch.int32)
+    valid = torch.rand(r, generator=g, device=dev) < 0.8
+    rows = (start, end, flt, extra, origin, table, valid)
+    news = ((), (2,), (1, 2), (0, 1, 2))
+    mism = cases = 0
+    for row_cap in (8, 12, 33, 64, 128, 256):
+        for fm in range(8):
+            msk = tuple(bool(fm >> i & 1) for i in range(3))
+            for xm in (0, 2, 6):
+                xmsk = tuple(bool(xm >> i & 1) for i in range(3))
+                for eq in ((), ((0, 2),), ((1, 2),), ((0, 1), (0, 2))):
+                    for out_cap in (r * row_cap, 1000):
+                        args = (keys, *rows, row_cap, out_cap, msk, xmsk, eq,
+                                news[(fm + xm + row_cap) % 4])
+                        got = ops.multiway_compact(*args, "kernel")
+                        want = ops.multiway_compact(*args, "torch")
+                        cases += 1
+                        mism += sum(int((x != y).sum())
+                                    for x, y in zip(got, want))
+    slots = [x[:4000].reshape(4, 1000, *x.shape[1:]) for x in rows[:4]] + [
+        x.reshape(4, 2000, *x.shape[1:]) for x in rows[4:]]
+    slots[4] = slots[4] % 1000                   # origins within a slot
+    call = lambda impl: lambda *a: ops.multiway_compact(
+        keys, *a, 64, 500, (False, False, True), (False, True, False), (),
+        (0, 2), impl)
+    got = torch.func.vmap(call("kernel"))(*slots)
+    for i in range(4):
+        want = call("torch")(*(x[i] for x in slots))
+        mism += sum(int((x[i] != y).sum()) for x, y in zip(got, want))
+    torch.cuda.synchronize()
+    log(f"[kernels] multiway_compact: {cases} cases (row caps 8..256, 8 flt "
+        f"masks, 3 prefix masks, 4 eq sets, out_cap all or 1000) + 4 slots "
+        f"under vmap, M={keys.numel()} B={b} R={r} mismatches={mism}")
+    return {"mismatches": mism, "max_abs_err": 0 if mism == 0 else None}
+
+
 def fuzz_flash_attention(torch, ops, seed: int) -> dict:
     """float32 and bfloat16; head dims 16..128; (h, g) of (4, 4), (8, 2),
     (32, 4), and at e 64 and 128 the LM families' (32, 8), (48, 8), (56, 8)
@@ -808,7 +867,7 @@ def first_call_args(ops, name: str, run) -> dict:
 
 def run_main_path(torch, args, failures: list) -> dict:
     from repro_torch.core import (Caps, ExecConfig, build_store, compile_plan,
-                                  execute_local, rows_set)
+                                  execute_local, mapsin, rows_set)
     from repro_torch.data.rdf_gen import LUBM_SPARQL, lubm_like
     from repro_torch.kernels import ops
     from repro_torch.serve import parse_bgp
@@ -834,25 +893,42 @@ def run_main_path(torch, args, failures: list) -> dict:
         rplans[name] = compile_plan(store, pats, caps, mode="reduce")
     log(f"[main] planning (host numpy statistics) {time.perf_counter() - t0:.1f} s")
 
-    # the main path: every count to 0 just before, read just after
+    # the main path: every count to 0 just before, read just after; the
+    # local steps never call multiway_merge (the distributed steps' tail)
     per_query = {}
+    merges = []
+    orig_merge = mapsin.multiway_merge
+
+    def counted_merge(*a, **kw):
+        merges.append(1)
+        return orig_merge(*a, **kw)
+
+    mapsin.multiway_merge = counted_merge
     ops.reset_launches()
-    for name, plan in plans.items():
-        before = dict(ops.launches)
-        bk = execute_local(store, plan, cfg=kern)
-        torch.cuda.synchronize()
-        launches = {k: ops.launches[k] - before[k] for k in before}
-        per_query[name] = dict(
-            plan=plan, bk=bk, launches=launches,
-            ms=wall_ms(torch, lambda: execute_local(store, plan, cfg=kern)))
+    try:
+        for name, plan in plans.items():
+            before = dict(ops.launches)
+            bk = execute_local(store, plan, cfg=kern)
+            torch.cuda.synchronize()
+            launches = {k: ops.launches[k] - before[k] for k in before}
+            per_query[name] = dict(
+                plan=plan, bk=bk, launches=launches,
+                ms=wall_ms(torch, lambda: execute_local(store, plan,
+                                                        cfg=kern)))
+    finally:
+        mapsin.multiway_merge = orig_merge
     main_launches = dict(ops.launches)
-    log(f"[main] kernel launches over the main path: {main_launches}")
-    for k in ("searchsorted", "probe_compact"):
+    log(f"[main] kernel launches over the main path: {main_launches}; "
+        f"multiway_merge calls: {len(merges)}")
+    for k in ("searchsorted", "probe_compact", "multiway_compact"):
         if main_launches[k] <= 0:
             failures.append(f"main path never launched the {k} kernel")
     if main_launches["probe_gather"]:
         failures.append("main path launched probe_gather: mapsin_step's GET "
                         "is probe_compact's")
+    if merges:
+        failures.append("main path called multiway_merge: multiway_step's "
+                        "patterns are multiway_compact's")
 
     ops.reset_launches()
     for name, rec in per_query.items():
@@ -872,7 +948,8 @@ def run_main_path(torch, args, failures: list) -> dict:
         rec["ms_reduce"] = wall_ms(torch, run)
 
     log(f"{'query':6s} {'steps':34s} {'rows':>7s} {'kernel_ms':>10s} "
-        f"{'torch_ms':>10s} {'reduce_ms':>10s} {'ss':>3s} {'pc':>3s}  identical")
+        f"{'torch_ms':>10s} {'reduce_ms':>10s} {'ss':>3s} {'pc':>3s} "
+        f"{'mc':>3s}  identical")
     for name, rec in per_query.items():
         bk, bt = rec["bk"], rec["bt"]
         same = (bk.vars == bt.vars and torch.equal(bk.table, bt.table)
@@ -891,7 +968,8 @@ def run_main_path(torch, args, failures: list) -> dict:
         log(f"{name:6s} {kinds:34s} {rows:7d} {rec['ms']:10.3f} "
             f"{rec['ms_torch']:10.3f} {rec['ms_reduce']:10.3f} "
             f"{rec['launches']['searchsorted']:3d} "
-            f"{rec['launches']['probe_compact']:3d}  {same}{note}")
+            f"{rec['launches']['probe_compact']:3d} "
+            f"{rec['launches']['multiway_compact']:3d}  {same}{note}")
     for name in ("Q1", "Q4", "Q8"):
         if name in plans:
             profile_query(torch, lambda p=plans[name]: execute_local(
@@ -921,9 +999,10 @@ def profile_query(torch, run, name: str, reps: int = 3) -> None:
 def time_kernels(torch, main: dict, fuzz: dict, floor) -> list:
     """Each kernel at the inputs the main path gives it, recorded from one
     execute_local run: the first rank-find of the first query with a
-    multiway step (beside the streaming floor), and the first mapsin step
-    of the first query with one: probe_compact, and probe_gather at the
-    same GET."""
+    multiway step (beside the streaming floor), the first mapsin step of
+    the first query with one: probe_compact, and probe_gather at the same
+    GET, and multiway_compact over every pattern of the first multiway
+    step."""
     from repro_torch.core import ExecConfig, execute_local
     from repro_torch.kernels import ops
     store, plans = main["store"], main["plans"]
@@ -1017,6 +1096,54 @@ def time_kernels(torch, main: dict, fuzz: dict, floor) -> list:
                           f"cap={cap} out_cap={out_cap} nv={table.shape[1]} "
                           f"new={new_pos} live_probes={live} "
                           f"in_range_keys={in_range} matches={total}"))
+
+    # multiway_compact over the patterns of the first multiway step
+    name = next(n for n, p in plans.items()
+                if any(st.kind == "multiway" for st in p.steps))
+    calls = all_call_args(ops, "multiway_compact", lambda: execute_local(
+        store, plans[name], cfg=kern))
+    n_pat = len(next(st for st in plans[name].steps
+                     if st.kind == "multiway").patterns)
+    calls = [{k: v for k, v in x.items() if k != "impl"}
+             for x in calls[:n_pat]]
+    step = lambda impl: [ops.multiway_compact(**x, impl=impl) for x in calls]
+    err = mism = 0
+    for got, want in zip(step("kernel"), step("torch")):
+        err = max(err, int((got[0] - want[0]).abs().max()))
+        mism += sum(int((a != b).sum()) for a, b in zip(got, want))
+    t_k = cuda_ms(torch, lambda: step("kernel"))
+    t_p = cuda_ms(torch, lambda: step("torch"), iters=3)
+    nbytes = found = 0
+    for x, got in zip(calls, step("kernel")):
+        valid, origin = x["valid"], x["origin"].long()
+        live = origin[valid]
+        n_in = (x["end"][live] - x["start"][live]).clamp(
+            min=0, max=x["row_cap"])
+        n_flt = (sum(x["flt_mask"]) + sum(x["extra_mask"])) * int(
+            (n_in > 0).sum())
+        kept = int(got[1].sum())
+        found += int(got[3]) + x["out_cap"]
+        w = got[0].shape[1]
+        # each row's flag, each valid row's origin, ranks and filter values,
+        # the in-range keys of its range, the kept rows' columns read once;
+        # the pattern's table, flags and origins written once
+        nbytes += (valid.numel() + live.numel() * (4 + 16) + n_flt * 8
+                   + int(n_in.sum()) * 8 + kept * x["table"].shape[1] * 4
+                   + x["out_cap"] * (w * 4 + 1 + 4))
+    out.append(dict(name="multiway_compact", **KERNELS["multiway_compact"],
+                    launches=main["launches"]["multiway_compact"],
+                    max_abs_err=err,
+                    mismatches=fz["multiway_compact"]["mismatches"] + mism,
+                    ms=t_k, plain_ms=t_p,
+                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                    library_ms=None,
+                    shape=f"{name}, first multiway step, {n_pat} patterns: "
+                          f"M={calls[0]['keys'].numel()} "
+                          f"B={calls[0]['start'].numel()} "
+                          f"row_cap={calls[0]['row_cap']} "
+                          f"out_cap={calls[0]['out_cap']} "
+                          f"valid_rows={[int(x['valid'].sum()) for x in calls]} "
+                          f"rows_found={found}"))
     for k in out[1:]:                  # searchsorted's: time_searchsorted
         log(f"[timing] {k['name']}: {k['shape']}: ms={k['ms']:.6f} "
             f"plain_ms={k['plain_ms']:.6f} bound_ms={k['bound_ms']:.6f} "
@@ -1202,7 +1329,8 @@ def run_engine_serving(torch, args, lubm: dict, failures: list) -> None:
             out = _orig(tid, template, batch, *a)
             per_dispatch.append((_t, tid, template, batch, tuple(
                 ops.launches[k] - before[k]
-                for k in ("searchsorted", "probe_compact"))))
+                for k in ("searchsorted", "probe_compact",
+                          "multiway_compact"))))
             return out
         e._dispatch = counted
     ops.reset_launches()
@@ -1276,7 +1404,8 @@ def run_engine_serving(torch, args, lubm: dict, failures: list) -> None:
         torch.cuda.synchronize()
         one = (ops.launches["searchsorted"] - before["searchsorted"]
                + seed_launches(template),
-               ops.launches["probe_compact"] - before["probe_compact"])
+               ops.launches["probe_compact"] - before["probe_compact"],
+               ops.launches["multiway_compact"] - before["multiway_compact"])
         counts = set().union(*seen.values())
         lines.append(f"{t}:t{tid} {'+'.join(st.kind for st in template.steps)}"
                      f" batches {sorted(seen)} -> {sorted(counts)} "
@@ -1285,8 +1414,8 @@ def run_engine_serving(torch, args, lubm: dict, failures: list) -> None:
             failures.append(f"serve: {t} template t{tid}: launches per "
                             f"dispatch {sorted(counts)} at batches "
                             f"{sorted(seen)}, one query launches {one}")
-    log("[serve] launches (searchsorted, probe_compact) per dispatch by "
-        "template: " + "; ".join(lines))
+    log("[serve] launches (searchsorted, probe_compact, multiway_compact) per "
+        "dispatch by template: " + "; ".join(lines))
 
     # saturated replay on warmed engines beside the sequential loop
     for t, _, pats in reqs:
@@ -5111,6 +5240,8 @@ def main() -> int:
                                                  floor)
         fuzz["probe_gather"] = fuzz_probe_gather(torch, ops, rdf, args.seed)
         fuzz["probe_compact"] = fuzz_probe_compact(torch, ops, rdf, args.seed)
+        fuzz["multiway_compact"] = fuzz_multiway_compact(torch, ops, rdf,
+                                                         args.seed)
         fuzz["flash_attention"] = fuzz_flash_attention(torch, ops, args.seed)
         for k, rec in fuzz.items():
             if rec["mismatches"]:

@@ -366,7 +366,7 @@ def dist_multiway_step(bnd: Bindings, patterns: Sequence, local_keys,
                                    region=_my_region(shard_splits, comm),
                                    routing=routing, splits=shard_splits,
                                    bucket_cap=bucket_cap)
-    return multiway_merge(bnd, plans, k, in_row, missed, row_cap, out_cap)
+    return multiway_merge(bnd, plans, k, in_row, missed, out_cap)
 
 
 # ---------------------------------------------------------------------------
@@ -472,8 +472,7 @@ def batched_dist_multiway_step(bnd: Bindings, patterns: Sequence, local_keys,
         splits=shard_splits, bucket_cap=bucket_cap,
         fault=fault, with_check=with_check)
     merged = _vmap_merge(
-        lambda b, kk, rr, mm: multiway_merge(b, plans, kk, rr, mm, row_cap,
-                                             out_cap),
+        lambda b, kk, rr, mm: multiway_merge(b, plans, kk, rr, mm, out_cap),
         bnd, *out[:3])
     return (merged, out[3]) if with_check else merged
 

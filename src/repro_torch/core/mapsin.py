@@ -8,7 +8,9 @@ Everything here operates on one shard's data with static shapes:
   * ``probe``           — the index GET: binary-search range + gather + filter
   * ``mapsin_step``     — Algorithm 1 (one cascading iteration): the GET
                           and the merge in one ``probe_compact``
-  * ``multiway_step``   — Algorithms 2+3 (star joins, single row-GET)
+  * ``multiway_step``   — Algorithms 2+3 (star joins, single row-GET):
+                          the row's rank-find, then each pattern's rows
+                          in one ``multiway_compact``
 
 No function here syncs the host: every count stays a device tensor, and
 ``compact`` is gather-formulated (no ``nonzero``, no boolean indexing).
@@ -111,14 +113,25 @@ def gather_range(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     Returns (k (B, cap) int64, valid (B, cap) bool, n_missed (B,) int32).
     Slots past a range's end hold clamped-gather keys (masked by valid).
     """
-    m = keys.shape[0]
     start = searchsorted(keys, lo, impl)
     end = searchsorted(keys, hi, impl)
+    k, valid = range_slots(keys, start, end, cap)
+    return k, valid, range_missed(start, end, cap)
+
+
+def range_slots(keys: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
+                cap: int):
+    """The first `cap` keys of each rank range [start, end) (B,): (k (B,
+    cap) int64, the clamped-gather key past a range's end; valid (B, cap)
+    bool)."""
     idx = start[:, None] + torch.arange(cap, device=keys.device)[None]
-    k = keys[idx.clamp(max=m - 1)]
-    valid = idx < end[:, None]
-    missed = (end - start - cap).clamp(min=0).to(torch.int32)
-    return k, valid, missed
+    return keys[idx.clamp(max=keys.shape[0] - 1)], idx < end[:, None]
+
+
+def range_missed(start: torch.Tensor, end: torch.Tensor,
+                 cap: int) -> torch.Tensor:
+    """(B,) int32: the keys of each rank range past its first `cap`."""
+    return (end - start - cap).clamp(min=0).to(torch.int32)
 
 
 def apply_residual(k: torch.Tensor, valid: torch.Tensor,
@@ -259,6 +272,10 @@ def multiway_step(bindings: Bindings, patterns: Sequence, keys: torch.Tensor,
     """Optimized multiway star join (Algorithm 3): ONE row-GET per input
     mapping answers all patterns sharing the join variable on the primary
     position; per-pattern predicate filters are applied to the fetched row.
+
+    The row-GET is its rank-find alone; each pattern's rows are then
+    written from the index by one ``multiway_compact`` (kernels/ops.py),
+    which on the card builds no (capacity, row_cap) temporary.
     """
     plans = [make_plan(p, bindings.vars) for p in patterns]
     p0 = plans[0]
@@ -269,49 +286,86 @@ def multiway_step(bindings: Bindings, patterns: Sequence, keys: torch.Tensor,
     lo, hi = row_range(p0, bindings.table)
     lo = torch.where(bindings.valid, lo, 0)
     hi = torch.where(bindings.valid, hi, 0)
-    k, in_row, missed = gather_range(keys, lo, hi, row_cap, impl)
-    return multiway_merge(bindings, plans, k, in_row, missed, row_cap,
-                          out_cap, found)
+    start = searchsorted(keys, lo, impl)
+    end = searchsorted(keys, hi, impl)
+    missed = range_missed(start, end, row_cap)
+    out = bindings
+    origin = torch.arange(bindings.capacity, dtype=torch.int32,
+                          device=keys.device)
+    for plan in plans:
+        flt, msk, extra, extra_msk = star_filters(plan, bindings.table)
+        table, vmask, dropped, over, origin = ops.multiway_compact(
+            keys, start, end, flt, extra, origin, out.table, out.valid,
+            row_cap, out_cap, msk, extra_msk, plan.eq_positions,
+            tuple(pos for _, pos in plan.out_vars), impl)
+        if found is not None:
+            found.append((over, out.capacity * row_cap, out_cap))
+        out = Bindings(out.vars + plan.out_var_names, table, vmask,
+                       out.overflow + dropped)
+    overflow = out.overflow + torch.where(
+        bindings.valid, missed, 0).sum().to(torch.int32)
+    return Bindings(out.vars, out.table, out.valid, overflow)
+
+
+def star_filters(plan: PatternPlan, table: torch.Tensor):
+    """One star pattern's tests on the fetched row of each binding of
+    `table` (B, nv): (residual values (B, 3), their (3,) mask, the
+    secondary and tertiary prefix components as values (B, 3), their
+    mask); the prefix components were part of the GET key in the 2-way
+    case."""
+    flt, msk = residual_values(plan, table)
+    extra, extra_msk = filter_columns(
+        dict(enumerate(plan.prefix[1:], start=1)), table)
+    return flt, msk, extra, extra_msk
+
+
+def multiway_match(table: torch.Tensor, valid: torch.Tensor,
+                   origin: torch.Tensor, k: torch.Tensor, in_row: torch.Tensor,
+                   flt: torch.Tensor, flt_mask: tuple, extra: torch.Tensor,
+                   extra_mask: tuple, eq_positions: tuple, new_pos: tuple,
+                   out_cap: int, found: list | None = None):
+    """One pattern of the multiway star join: the rows (table (R, nv),
+    valid (R,)), each from the binding `origin` (R,) int32, expanded
+    against the matches of that binding's fetched row (k, in_row) (B,
+    row_cap) under the pattern's filters. Returns (table (out_cap, nv +
+    len(new_pos)), valid mask, n_dropped int32, origin (out_cap,) int32):
+    in (row, slot) order, each row followed by its match's fields at
+    `new_pos`, zeros past the kept rows (so the origins stay in bounds).
+    """
+    match = apply_residual(k, in_row, flt, flt_mask, eq_positions)
+    match = apply_residual(k, match, extra, extra_mask)
+    co = origin.long()
+    km = k[co]                                     # (R, row_cap)
+    mm = match[co] & valid[:, None]
+    t = unpack3(km)
+    n, row_cap = mm.shape
+    old = table[:, None, :].expand(n, row_cap, table.shape[1])
+    new_cols = [t[pos][..., None].to(torch.int32) for pos in new_pos]
+    ori = origin[:, None, None].expand(n, row_cap, 1)
+    rows = torch.cat([old] + new_cols + [ori], dim=-1)
+    packed, vmask, dropped = compact(rows.reshape(n * row_cap, -1),
+                                     mm.reshape(-1), out_cap, found=found)
+    return packed[:, :-1], vmask, dropped, packed[:, -1]
 
 
 def multiway_merge(bindings: Bindings, plans: Sequence[PatternPlan],
                    k: torch.Tensor, in_row: torch.Tensor,
-                   missed: torch.Tensor, row_cap: int,
-                   out_cap: int, found: list | None = None) -> Bindings:
+                   missed: torch.Tensor, out_cap: int,
+                   found: list | None = None) -> Bindings:
     """The tail of the multiway star join after its row-GET (k, in_row,
-    missed) (B, row_cap): per-pattern filtering of the fetched row and
-    the iterative merge. Shared by ``multiway_step`` and the distributed
-    steps (core/distributed.py), which fetch the row through a
-    collective."""
-    dev = k.device
+    missed) (B, row_cap): ``multiway_match`` pattern by pattern, for the
+    distributed steps (core/distributed.py), which fetch the row through
+    a collective."""
     out = bindings
-    # row -> probe index; origins of invalid rows are the zero padding, so
-    # k[cur_origin] stays in bounds
-    cur_origin = torch.arange(bindings.capacity, dtype=torch.int32, device=dev)
+    origin = torch.arange(bindings.capacity, dtype=torch.int32,
+                          device=k.device)
     for plan in plans:
-        flt, msk = residual_values(plan, bindings.table)
-        # secondary/tertiary prefix components become residual filters on
-        # the fetched row
-        extra_vals, extra_msk = filter_columns(
-            dict(enumerate(plan.prefix[1:], start=1)), bindings.table)
-        match = apply_residual(k, in_row, flt, msk, plan.eq_positions)
-        match = apply_residual(k, match, extra_vals, extra_msk)
-        # expand current out rows against this pattern's matches
-        co = cur_origin.long()
-        km = k[co]                                 # (out_cap, row_cap)
-        mm = match[co] & out.valid[:, None]
-        t = unpack3(km)
-        old = out.table[:, None, :].expand(out.capacity, row_cap,
-                                           len(out.vars))
-        new_cols = [t[pos][..., None].to(torch.int32)
-                    for _, pos in plan.out_vars]
-        ori = cur_origin[:, None, None].expand(out.capacity, row_cap, 1)
-        rows = torch.cat([old] + new_cols + [ori], dim=-1)
-        table, vmask, dropped = compact(
-            rows.reshape(out.capacity * row_cap, -1), mm.reshape(-1), out_cap,
-            found=found)
-        cur_origin = table[:, -1]
-        out = Bindings(out.vars + plan.out_var_names, table[:, :-1], vmask,
+        flt, msk, extra, extra_msk = star_filters(plan, bindings.table)
+        table, vmask, dropped, origin = multiway_match(
+            out.table, out.valid, origin, k, in_row, flt, msk, extra,
+            extra_msk, plan.eq_positions,
+            tuple(pos for _, pos in plan.out_vars), out_cap, found)
+        out = Bindings(out.vars + plan.out_var_names, table, vmask,
                        out.overflow + dropped)
     overflow = out.overflow + torch.where(
         bindings.valid, missed, 0).sum().to(torch.int32)

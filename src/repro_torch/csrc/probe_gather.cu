@@ -48,6 +48,21 @@
 // passes take one probe a thread and spend warp-wide work only on the
 // probes that have keys; the count pass is latency-bound on the live
 // probes' searches, like the kernel above.
+//
+// multiway_compact (multiway_count_kernel, a scan of the counts, then
+// multiway_emit_kernel) replaces no TPU kernel either: it is one pattern
+// of the multiway star join (core/mapsin.py `multiway_match`) after the
+// row-GET's rank-find. Each of the step's rows (R of them: the bindings,
+// then out_cap) comes from a binding, its origin, whose fetched row is
+// the rank range [start, end); the rows of the pattern are each valid row
+// followed by each key among the first row_cap of that range that passes
+// the pattern's tests, in (row, slot) order, cut at out_cap. The merge
+// built them as R x row_cap temporaries (2^26 slots at the main path's
+// shapes) for a few dozen rows. What bounds it on this card: bytes, a
+// few MB: the R flags and counts, the live rows' origins, ranks, filter
+// values and in-range keys (read twice), and the step's table and
+// origins written once. Both passes take one row a thread and spend
+// warp-wide work only on the valid rows whose range holds a key.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -306,6 +321,190 @@ __global__ void probe_emit_kernel(const int64_t* __restrict__ keys, int64_t m,
   }
 }
 
+// Whether a key passes one star pattern's tests: its residual values f
+// at flt_mask, its prefix components x at extra_mask, its repeats.
+__device__ __forceinline__ bool star_ok(int64_t key, int64_t f0, int64_t f1,
+                                        int64_t f2, int64_t x0, int64_t x1,
+                                        int64_t x2, int flt_mask,
+                                        int extra_mask, int eq_mask,
+                                        int bits) {
+  return residual_ok(key, f0, f1, f2, flt_mask, eq_mask, bits) &&
+         residual_ok(key, x0, x1, x2, extra_mask, 0, bits);
+}
+
+// A star row's fetched range and tests: row p (of slot p / r) takes the
+// range of binding q = slot * b + origin[p]. Sets q, the range's first
+// rank s, its length n_in (at most row_cap) and, where n_in > 0, the
+// filter values.
+__device__ __forceinline__ void star_row(
+    const int64_t* __restrict__ start, const int64_t* __restrict__ end,
+    const int64_t* __restrict__ flt, const int64_t* __restrict__ extra,
+    const int32_t* __restrict__ origin, int64_t p, int64_t r, int64_t b,
+    int row_cap, int flt_mask, int extra_mask, int32_t& o, int64_t& s,
+    int64_t& n_in, int64_t& f0, int64_t& f1, int64_t& f2, int64_t& x0,
+    int64_t& x1, int64_t& x2) {
+  o = origin[p];
+  const int64_t q = (p / r) * b + o;
+  s = start[q];
+  const int64_t e = end[q];
+  n_in = e - s < row_cap ? e - s : row_cap;
+  if (n_in > 0) {
+    load_filter(flt, q, flt_mask, f0, f1, f2);
+    load_filter(extra, q, extra_mask, x0, x1, x2);
+  }
+}
+
+// multiway_compact, pass 1 of 2. One thread per row, 32 rows a warp: each
+// lane reads its row's flag (one coalesced read a warp) and, for a valid
+// row, its origin, range and filter values. An invalid row costs its
+// flag and its store. Then the warp takes the rows whose range holds a
+// key one at a time, its lanes on neighbouring keys, and counts the keys
+// that pass by ballot. Writes count[p] for each of the n = s * r rows.
+__global__ void multiway_count_kernel(
+    const int64_t* __restrict__ keys, const int64_t* __restrict__ start,
+    const int64_t* __restrict__ end, const int64_t* __restrict__ flt,
+    const int64_t* __restrict__ extra, const int32_t* __restrict__ origin,
+    const bool* __restrict__ valid, int64_t n, int64_t r, int64_t b,
+    int row_cap, int flt_mask, int extra_mask, int eq_mask, int bits,
+    int32_t* __restrict__ count) {
+  const int lane = threadIdx.x & 31;
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (p - lane >= n) return;          // whole warps exit together
+  const bool in = p < n;
+  int32_t o = 0;
+  int64_t s = 0;
+  int64_t n_in = 0;
+  int64_t f0 = 0, f1 = 0, f2 = 0, x0 = 0, x1 = 0, x2 = 0;
+  if (in && valid[p]) {
+    star_row(start, end, flt, extra, origin, p, r, b, row_cap, flt_mask,
+             extra_mask, o, s, n_in, f0, f1, f2, x0, x1, x2);
+  }
+  int32_t mine = 0;
+  for (unsigned todo = __ballot_sync(kAll, n_in > 0); todo; todo &= todo - 1) {
+    const int j = __ffs(todo) - 1;
+    const long long sj = __shfl_sync(kAll, static_cast<long long>(s), j);
+    const long long nj = __shfl_sync(kAll, static_cast<long long>(n_in), j);
+    const long long g0 = __shfl_sync(kAll, static_cast<long long>(f0), j);
+    const long long g1 = __shfl_sync(kAll, static_cast<long long>(f1), j);
+    const long long g2 = __shfl_sync(kAll, static_cast<long long>(f2), j);
+    const long long y0 = __shfl_sync(kAll, static_cast<long long>(x0), j);
+    const long long y1 = __shfl_sync(kAll, static_cast<long long>(x1), j);
+    const long long y2 = __shfl_sync(kAll, static_cast<long long>(x2), j);
+    int32_t got = 0;
+    for (long long c0 = 0; c0 < nj; c0 += 32) {
+      const long long c = c0 + lane;  // s + c < end <= M: in bounds
+      const bool ok = c < nj && star_ok(__ldg(keys + sj + c), g0, g1, g2, y0,
+                                        y1, y2, flt_mask, extra_mask, eq_mask,
+                                        bits);
+      got += __popc(__ballot_sync(kAll, ok));
+    }
+    if (lane == j) mine = got;
+  }
+  if (in) count[p] = mine;
+}
+
+// multiway_compact, pass 2 of 2, after the exclusive offsets off = incl -
+// count of a scan of each slot's counts. blockIdx.y is the slot: its r
+// rows, its out_cap rows out of w = nv + n_new int32 columns and their
+// origins. Thread t of a slot writes out row t's flag, its origin where
+// it lies past the kept rows (zero), element t of the slot's table where
+// it lies past the kept rows (zero), and, for row t with matches and off
+// < out_cap, the warp re-reads the row's range from its start, ranks the
+// passing keys by ballot and popcount, and writes each kept match at row
+// off + rank: row t's nv columns, the key's fields at the n_new positions
+// packed two bits each in new_pos, and the origin. No atomics: rows go
+// in (row, slot) order and the first out_cap of a slot are kept, as a
+// cumulative count over (row, slot) keeps them.
+__global__ void multiway_emit_kernel(
+    const int64_t* __restrict__ keys, const int64_t* __restrict__ start,
+    const int64_t* __restrict__ end, const int64_t* __restrict__ flt,
+    const int64_t* __restrict__ extra, const int32_t* __restrict__ origin,
+    const int32_t* __restrict__ table, int nv,
+    const int32_t* __restrict__ count, const int32_t* __restrict__ incl,
+    int64_t r, int64_t b, int row_cap, int out_cap, int flt_mask,
+    int extra_mask, int eq_mask, int bits, int new_pos, int n_new,
+    int32_t* __restrict__ out, bool* __restrict__ out_valid,
+    int32_t* __restrict__ out_origin, int32_t* __restrict__ dropped,
+    int32_t* __restrict__ over) {
+  const int lane = threadIdx.x & 31;
+  const int64_t slot = blockIdx.y;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int w = nv + n_new;
+  const int32_t total = incl[slot * r + r - 1];
+  const int64_t kept = total < out_cap ? total : out_cap;
+  int32_t* slot_out = out + slot * out_cap * w;
+  int32_t* slot_origin = out_origin + slot * out_cap;
+  if (t < out_cap) {
+    out_valid[slot * out_cap + t] = t < kept;
+    if (t >= kept) slot_origin[t] = 0;
+  }
+  if (t >= kept * w && t < static_cast<int64_t>(out_cap) * w) slot_out[t] = 0;
+  if (t == 0) {
+    over[slot] = total - out_cap;
+    dropped[slot] = total > out_cap ? total - out_cap : 0;
+  }
+  if (t - lane >= r) return;          // whole warps exit together
+  const int64_t p = slot * r + t;
+  int32_t cnt = 0;
+  int32_t off = 0;
+  if (t < r) {
+    cnt = count[p];
+    off = incl[p] - cnt;
+  }
+  const bool emit = cnt > 0 && off < out_cap;
+  int32_t o = 0;
+  int64_t s = 0;
+  int64_t n_in = 0;
+  int64_t f0 = 0, f1 = 0, f2 = 0, x0 = 0, x1 = 0, x2 = 0;
+  if (emit) {
+    star_row(start, end, flt, extra, origin, p, r, b, row_cap, flt_mask,
+             extra_mask, o, s, n_in, f0, f1, f2, x0, x1, x2);
+  }
+  const int64_t field = (int64_t{1} << bits) - 1;
+  const unsigned below = (1u << lane) - 1;
+  for (unsigned todo = __ballot_sync(kAll, emit); todo; todo &= todo - 1) {
+    const int j = __ffs(todo) - 1;
+    const long long sj = __shfl_sync(kAll, static_cast<long long>(s), j);
+    const long long nj = __shfl_sync(kAll, static_cast<long long>(n_in), j);
+    const long long g0 = __shfl_sync(kAll, static_cast<long long>(f0), j);
+    const long long g1 = __shfl_sync(kAll, static_cast<long long>(f1), j);
+    const long long g2 = __shfl_sync(kAll, static_cast<long long>(f2), j);
+    const long long y0 = __shfl_sync(kAll, static_cast<long long>(x0), j);
+    const long long y1 = __shfl_sync(kAll, static_cast<long long>(x1), j);
+    const long long y2 = __shfl_sync(kAll, static_cast<long long>(x2), j);
+    const int32_t oj = __shfl_sync(kAll, o, j);
+    const int32_t offj = __shfl_sync(kAll, off, j);
+    const int32_t cntj = __shfl_sync(kAll, cnt, j);
+    const int32_t limit = cntj < out_cap - offj ? cntj : out_cap - offj;
+    const int32_t* src = table + (p - lane + j) * nv;
+    int32_t* dst = slot_out + static_cast<int64_t>(offj) * w;
+    int32_t* dst_origin = slot_origin + offj;
+    int32_t done = 0;
+    for (long long c0 = 0; done < limit && c0 < nj; c0 += 32) {
+      const long long c = c0 + lane;
+      int64_t key = 0;
+      bool ok = c < nj;               // s + c < end <= M: in bounds
+      if (ok) {
+        key = __ldg(keys + sj + c);
+        ok = star_ok(key, g0, g1, g2, y0, y1, y2, flt_mask, extra_mask,
+                     eq_mask, bits);
+      }
+      const unsigned hits = __ballot_sync(kAll, ok);
+      const int32_t rank = done + __popc(hits & below);
+      if (ok && rank < limit) {
+        int32_t* row = dst + static_cast<int64_t>(rank) * w;
+        for (int q = 0; q < nv; ++q) row[q] = src[q];
+        for (int q = 0; q < n_new; ++q) {
+          const int pos = (new_pos >> (2 * q)) & 3;
+          row[nv + q] = static_cast<int32_t>((key >> ((2 - pos) * bits)) & field);
+        }
+        dst_origin[rank] = oj;
+      }
+      done += __popc(hits);
+    }
+  }
+}
+
 }  // namespace
 
 // flt_mask: bit p set = residual equality on index-order position p.
@@ -374,5 +573,64 @@ extern "C" int probe_emit_i64(const void* keys, int64_t m, const void* flt,
       static_cast<const int32_t*>(incl), b, out_cap, flt_mask, eq_mask, bits,
       new_pos, n_new, static_cast<int32_t*>(out), static_cast<bool*>(out_valid),
       static_cast<int32_t*>(dropped), static_cast<int32_t*>(over));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// multiway_compact's passes over s slots of r rows (n = s * r) whose
+// origins index b bindings a slot, for the wrapper kernels/probe_gather.py
+// `multiway_compact_cuda`, which scans the counts between them.
+// extra_mask: the positions of the prefix components tested like flt_mask.
+extern "C" int multiway_count_i64(const void* keys, const void* start,
+                                  const void* end, const void* flt,
+                                  const void* extra, const void* origin,
+                                  const void* valid, int64_t n, int64_t r,
+                                  int64_t b, int row_cap, int flt_mask,
+                                  int extra_mask, int eq_mask, int bits,
+                                  void* count, void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 256;
+  const int64_t blocks = (n + threads - 1) / threads;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  multiway_count_kernel<<<static_cast<unsigned int>(blocks), threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(keys), static_cast<const int64_t*>(start),
+      static_cast<const int64_t*>(end), static_cast<const int64_t*>(flt),
+      static_cast<const int64_t*>(extra), static_cast<const int32_t*>(origin),
+      static_cast<const bool*>(valid), n, r, b, row_cap, flt_mask, extra_mask,
+      eq_mask, bits, static_cast<int32_t*>(count));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int multiway_emit_i64(const void* keys, const void* start,
+                                 const void* end, const void* flt,
+                                 const void* extra, const void* origin,
+                                 const void* table, int nv, const void* count,
+                                 const void* incl, int64_t s, int64_t r,
+                                 int64_t b, int row_cap, int out_cap,
+                                 int flt_mask, int extra_mask, int eq_mask,
+                                 int bits, int new_pos, int n_new, void* out,
+                                 void* out_valid, void* out_origin,
+                                 void* dropped, void* over, void* stream) {
+  if (s <= 0 || r <= 0) return 0;
+  const int threads = 256;
+  int64_t span = static_cast<int64_t>(out_cap) * (nv + n_new);
+  if (span < out_cap) span = out_cap;
+  if (span < r) span = r;
+  const int64_t blocks = (span + threads - 1) / threads;
+  if (blocks > 0x7fffffff || s > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned int>(blocks),
+                  static_cast<unsigned int>(s));
+  multiway_emit_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(keys), static_cast<const int64_t*>(start),
+      static_cast<const int64_t*>(end), static_cast<const int64_t*>(flt),
+      static_cast<const int64_t*>(extra), static_cast<const int32_t*>(origin),
+      static_cast<const int32_t*>(table), nv,
+      static_cast<const int32_t*>(count), static_cast<const int32_t*>(incl), r,
+      b, row_cap, out_cap, flt_mask, extra_mask, eq_mask, bits, new_pos, n_new,
+      static_cast<int32_t*>(out), static_cast<bool*>(out_valid),
+      static_cast<int32_t*>(out_origin), static_cast<int32_t*>(dropped),
+      static_cast<int32_t*>(over));
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,11 +7,12 @@ the plain PyTorch version. ``impl="torch"`` takes the plain version on any
 device. There is no fallback from a failed launch.
 
 The index kernels are ``torch.library`` custom ops,
-``repro_torch::searchsorted``, ``repro_torch::probe_gather`` and
+``repro_torch::searchsorted``, ``repro_torch::probe_gather``,
 ``repro_torch::probe_compact`` (the GET and the MAPSIN merge in one: its
-two kernels and the scan between them, one launch in ``launches``): the
-CPU implementation is the plain version and the CUDA one the kernel's
-launch.
+two kernels and the scan between them, one launch in ``launches``) and
+``repro_torch::multiway_compact`` (one star pattern's rows from the
+multiway row-GET's ranks, built the same way): the CPU implementation is
+the plain version and the CUDA one the kernel's launch.
 Each has a ``torch.func.vmap`` rule for the serving engine, which runs one
 query's cascade under ``vmap`` for a whole batch of same-template queries:
 the store's keys are shared by every slot, so the rule folds the batch
@@ -39,11 +40,12 @@ from repro_torch.kernels import searchsorted as _ss
 IMPLS = ("kernel", "torch")
 
 launches = {"searchsorted": 0, "probe_gather": 0, "probe_compact": 0,
-            "flash_attention": 0}
+            "multiway_compact": 0, "flash_attention": 0}
 # flash_attention's launches by kernel: "wgmma" (tensor cores) or "simt"
 flash_attention_variants = {"wgmma": 0, "simt": 0}
 # calls of a vmap rule that folded a batch into one call of the op
-vmap_folds = {"searchsorted": 0, "probe_gather": 0, "probe_compact": 0}
+vmap_folds = {"searchsorted": 0, "probe_gather": 0, "probe_compact": 0,
+              "multiway_compact": 0}
 _count_lock = threading.Lock()
 
 
@@ -260,6 +262,99 @@ def probe_compact(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
         flt[None].contiguous(), table[None].contiguous(), int(cap),
         int(out_cap), *_pg.encode_masks(flt_mask, eq_positions),
         list(new_pos))
+    return tuple(o[0] for o in outs)
+
+
+# --- multiway_compact -------------------------------------------------------
+# A leading slot dimension as for probe_compact: S slots, each of B
+# bindings (start, end, flt, extra) and R rows (origin, table, valid).
+
+
+@torch.library.custom_op("repro_torch::multiway_compact", mutates_args=(),
+                         device_types="cpu")
+def _multiway_compact_op(keys: torch.Tensor, start: torch.Tensor,
+                         end: torch.Tensor, flt: torch.Tensor,
+                         extra: torch.Tensor, origin: torch.Tensor,
+                         table: torch.Tensor, valid: torch.Tensor,
+                         row_cap: int, out_cap: int, fmask: int, xmask: int,
+                         eq_mask: int, new_pos: list[int]
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                    torch.Tensor, torch.Tensor]:
+    flt_mask, eq_positions = _pg.decode_masks(fmask, eq_mask)
+    extra_mask = _pg.decode_masks(xmask, 0)[0]
+    slots = [_pg.multiway_compact_plain(
+        keys, start[i], end[i], flt[i], extra[i], origin[i], table[i],
+        valid[i], row_cap, out_cap, flt_mask, extra_mask, eq_positions,
+        tuple(new_pos)) for i in range(start.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*slots))
+
+
+@_multiway_compact_op.register_kernel("cuda")
+def _multiway_compact_launch(keys, start, end, flt, extra, origin, table,
+                             valid, row_cap, out_cap, fmask, xmask, eq_mask,
+                             new_pos):
+    flt_mask, eq_positions = _pg.decode_masks(fmask, eq_mask)
+    out = _pg.multiway_compact_cuda(
+        keys, start, end, flt, extra, origin, table, valid, row_cap, out_cap,
+        flt_mask, _pg.decode_masks(xmask, 0)[0], eq_positions, tuple(new_pos))
+    _count(launches, "multiway_compact", int(valid.numel() > 0))
+    return out
+
+
+@_multiway_compact_op.register_fake
+def _(keys, start, end, flt, extra, origin, table, valid, row_cap, out_cap,
+      fmask, xmask, eq_mask, new_pos):
+    s = start.shape[0]
+    return (table.new_empty((s, out_cap, table.shape[2] + len(new_pos))),
+            valid.new_empty((s, out_cap)), table.new_empty((s,)),
+            table.new_empty((s,)), origin.new_empty((s, out_cap)))
+
+
+def _multiway_compact_vmap(info, in_dims, keys, start, end, flt, extra,
+                           origin, table, valid, row_cap, out_cap, fmask,
+                           xmask, eq_mask, new_pos):
+    _shared_keys("multiway_compact", in_dims)
+    n = info.batch_size
+    s = _slot_shape(start, in_dims[1])[0]
+    folded = [_fold(x, d, n) for x, d in zip(
+        (start, end, flt, extra, origin, table, valid), in_dims[1:8])]
+    _count(vmap_folds, "multiway_compact")
+    outs = _multiway_compact_op(keys, *folded, row_cap, out_cap, fmask, xmask,
+                                eq_mask, new_pos)
+    return tuple(o.view(n, s, *o.shape[1:]) for o in outs), (0,) * 5
+
+
+_multiway_compact_op.register_vmap(_multiway_compact_vmap)
+
+
+def multiway_compact(keys: torch.Tensor, start: torch.Tensor,
+                     end: torch.Tensor, flt: torch.Tensor, extra: torch.Tensor,
+                     origin: torch.Tensor, table: torch.Tensor,
+                     valid: torch.Tensor, row_cap: int, out_cap: int,
+                     flt_mask: tuple = (False, False, False),
+                     extra_mask: tuple = (False, False, False),
+                     eq_positions: tuple = (), new_pos: tuple = (),
+                     impl: str = "kernel"):
+    """One star pattern of the multiway join: the rows (table (R, nv)
+    int32, valid (R,)), each from the binding origin (R,) int32 whose
+    fetched row is the rank range [start, end) (B,) int64, expanded
+    against the range's first `row_cap` keys that pass the residual values
+    flt (B, 3) at `flt_mask`, the prefix components extra (B, 3) at
+    `extra_mask` and the repeats: (table (out_cap, nv + len(new_pos))
+    int32, valid (out_cap,) bool, dropped () int32, over () int32, origin
+    (out_cap,) int32), equal to ``multiway_match`` over the gathered row
+    (kernels/probe_gather.py)."""
+    _check_impl(impl)
+    if impl == "torch":
+        return _pg.multiway_compact_plain(
+            keys, start, end, flt, extra, origin, table, valid, row_cap,
+            out_cap, flt_mask, extra_mask, eq_positions, new_pos)
+    fmask, eq_mask = _pg.encode_masks(flt_mask, eq_positions)
+    outs = _multiway_compact_op(
+        keys, *(x[None].contiguous() for x in (start, end, flt, extra, origin,
+                                              table, valid)),
+        int(row_cap), int(out_cap), fmask, _pg.encode_masks(extra_mask, ())[0],
+        eq_mask, list(new_pos))
     return tuple(o[0] for o in outs)
 
 

@@ -20,6 +20,20 @@ what ``core/mapsin.py`` ``merge_bindings`` makes of ``probe_gather``'s
 outputs, with no (B, cap) temporary on the card: its kernels count each
 probe's matches, scan the counts and write the rows (``csrc/
 probe_gather.cu``). Its plain version is that composition.
+
+``multiway_compact`` is one pattern of the multiway star join: for rows
+(table (R, nv) int32, valid (R,)), each from the binding origin[r] whose
+fetched row is the rank range [start, end) of that binding, it returns
+  table   (out_cap, nv + len(new_pos)) int32 — in (row, slot) order, each
+          row with a key among the first `row_cap` of its range that
+          passes the pattern's residual, prefix and repeat tests,
+          followed by that key's fields at `new_pos`; zeros after the
+          first `out_cap`;
+  valid   (out_cap,) bool; dropped () int32; over () int32 as above;
+  origin  (out_cap,) int32, each kept row's binding, zeros after;
+what ``core/mapsin.py`` ``multiway_match`` makes of the gathered row,
+with no (R, row_cap) temporary on the card: the same count, scan and
+emit. Its plain version is that composition.
 ``kernels/ops.py`` chooses between the versions.
 """
 from __future__ import annotations
@@ -208,3 +222,113 @@ def probe_compact_cuda(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
         raise RuntimeError(f"probe_compact kernel launch failed: CUDA error "
                            f"{rc}")
     return out, valid, dropped, over, missed
+
+
+def multiway_compact_plain(keys: torch.Tensor, start: torch.Tensor,
+                           end: torch.Tensor, flt: torch.Tensor,
+                           extra: torch.Tensor, origin: torch.Tensor,
+                           table: torch.Tensor, valid: torch.Tensor,
+                           row_cap: int, out_cap: int,
+                           flt_mask: tuple = (False, False, False),
+                           extra_mask: tuple = (False, False, False),
+                           eq_positions: tuple = (), new_pos: tuple = ()):
+    """The plain version: the first `row_cap` keys of each binding's
+    range (core/mapsin.py ``range_slots``), then ``multiway_match``.
+    Returns (table, valid, dropped, over, origin) as described above."""
+    from repro_torch.core.mapsin import multiway_match, range_slots
+    k, in_row = range_slots(keys, start, end, row_cap)
+    out, vmask, dropped, ori = multiway_match(
+        table, valid, origin, k, in_row, flt, flt_mask, extra, extra_mask,
+        eq_positions, new_pos, out_cap)
+    # the rows found are the kept ones and the dropped ones
+    over = vmask.sum(dtype=torch.int32) + dropped - out_cap
+    return out, vmask, dropped, over, ori
+
+
+@functools.cache
+def _multiway_fns():
+    lib = _build.library("probe_gather")
+    count, emit = lib.multiway_count_i64, lib.multiway_emit_i64
+    p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    count.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i, i, i, i, i, p, p]
+    emit.argtypes = [p, p, p, p, p, p, p, i, p, p, i64, i64, i64, i, i, i, i,
+                     i, i, i, i, p, p, p, p, p, p]
+    count.restype = emit.restype = ctypes.c_int
+    return count, emit
+
+
+def multiway_compact_cuda(keys: torch.Tensor, start: torch.Tensor,
+                          end: torch.Tensor, flt: torch.Tensor,
+                          extra: torch.Tensor, origin: torch.Tensor,
+                          table: torch.Tensor, valid: torch.Tensor,
+                          row_cap: int, out_cap: int,
+                          flt_mask: tuple = (False, False, False),
+                          extra_mask: tuple = (False, False, False),
+                          eq_positions: tuple = (), new_pos: tuple = ()):
+    """Launch multiway_compact's kernels on the current stream for S slots,
+    each of B bindings and R rows compacted into its own out_cap rows.
+    keys: (M,) int64 sorted; start/end: (S, B) int64 ranks; flt/extra:
+    (S, B, 3) int64; origin: (S, R) int32; table: (S, R, nv) int32;
+    valid: (S, R) bool; all contiguous on one CUDA device. Returns (table
+    (S, out_cap, w), valid (S, out_cap), dropped (S,), over (S,), origin
+    (S, out_cap)), each slot as described above."""
+    from repro_torch.core.rdf import BITS
+    check_tensor(keys, "keys", torch.int64, (None,))
+    dev = keys.device
+    check_tensor(start, "start", torch.int64, (None, None), dev)
+    s, b = start.shape
+    check_tensor(end, "end", torch.int64, (s, b), dev)
+    check_tensor(flt, "flt", torch.int64, (s, b, 3), dev)
+    check_tensor(extra, "extra", torch.int64, (s, b, 3), dev)
+    check_tensor(origin, "origin", torch.int32, (s, None), dev)
+    r = origin.shape[1]
+    check_tensor(table, "table", torch.int32, (s, r, None), dev)
+    check_tensor(valid, "valid", torch.bool, (s, r), dev)
+    row_cap, out_cap = int(row_cap), int(out_cap)
+    if not 1 <= row_cap < 2 ** 31 or not 0 <= out_cap < 2 ** 31:
+        raise ValueError(f"multiway_compact: row_cap must be in [1, 2^31) "
+                         f"and out_cap in [0, 2^31), got {row_cap} and "
+                         f"{out_cap}")
+    if r * row_cap >= 2 ** 31 or s > 65535:
+        raise ValueError(f"multiway_compact: a slot's R * row_cap must stay "
+                         f"below 2^31 and the slots at most 65535, got "
+                         f"R={r}, row_cap={row_cap}, {s} slots")
+    if len(new_pos) > 3 or any(q not in (0, 1, 2) for q in new_pos):
+        raise ValueError(f"multiway_compact: bad new positions {new_pos}")
+    fmask, eq_mask = encode_masks(flt_mask, eq_positions)
+    xmask, _ = encode_masks(extra_mask, ())
+    nv = table.shape[2]
+    out = torch.empty((s, out_cap, nv + len(new_pos)), dtype=torch.int32,
+                      device=dev)
+    out_valid = torch.empty((s, out_cap), dtype=torch.bool, device=dev)
+    dropped = torch.empty((s,), dtype=torch.int32, device=dev)
+    over = torch.empty((s,), dtype=torch.int32, device=dev)
+    out_origin = torch.empty((s, out_cap), dtype=torch.int32, device=dev)
+    if s * r == 0:
+        for x in (out, out_valid, dropped, out_origin):
+            x.zero_()
+        over.fill_(-out_cap)
+        return out, out_valid, dropped, over, out_origin
+    count = torch.empty((s, r), dtype=torch.int32, device=dev)
+    count_fn, emit_fn = _multiway_fns()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    packed = sum(q << (2 * i) for i, q in enumerate(new_pos))
+    with torch.cuda.device(dev):
+        rc = count_fn(keys.data_ptr(), start.data_ptr(), end.data_ptr(),
+                      flt.data_ptr(), extra.data_ptr(), origin.data_ptr(),
+                      valid.data_ptr(), s * r, r, b, row_cap, fmask, xmask,
+                      eq_mask, BITS, count.data_ptr(), stream)
+        if rc == 0:
+            incl = torch.cumsum(count, dim=1, dtype=torch.int32)
+            rc = emit_fn(keys.data_ptr(), start.data_ptr(), end.data_ptr(),
+                         flt.data_ptr(), extra.data_ptr(), origin.data_ptr(),
+                         table.data_ptr(), nv, count.data_ptr(),
+                         incl.data_ptr(), s, r, b, row_cap, out_cap, fmask,
+                         xmask, eq_mask, BITS, packed, len(new_pos),
+                         out.data_ptr(), out_valid.data_ptr(),
+                         out_origin.data_ptr(), dropped.data_ptr(),
+                         over.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"multiway_compact kernel launch failed: CUDA "
+                           f"error {rc}")
+    return out, out_valid, dropped, over, out_origin

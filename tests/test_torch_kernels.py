@@ -5,6 +5,8 @@ The cases mirror tests/test_kernels_searchsorted.py and
 tests/test_probe_gather.py at small sizes; all outputs are integers and
 must be bit-identical. The CUDA kernels themselves run only on a card:
 their case is marked ``gpu`` and skips elsewhere."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +21,8 @@ from repro.kernels import ops as jops
 
 from repro_torch.core.bgp import ExecConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.probe_gather import (probe_compact_cuda,
+from repro_torch.kernels.probe_gather import (multiway_compact_cuda,
+                                              probe_compact_cuda,
                                               probe_gather_cuda)
 from repro_torch.kernels.searchsorted import searchsorted_cuda
 
@@ -181,6 +184,12 @@ def test_cuda_wrappers_reject_host_tensors():
         probe_compact_cuda(keys, keys[None], keys[None],
                            torch.zeros((1, 10, 3), dtype=torch.int64),
                            torch.zeros((1, 10, 2), dtype=torch.int32), 8, 16)
+    flt = torch.zeros((1, 10, 3), dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        multiway_compact_cuda(keys, keys[None], keys[None], flt, flt,
+                              torch.zeros((1, 10), dtype=torch.int32),
+                              torch.zeros((1, 10, 2), dtype=torch.int32),
+                              torch.ones((1, 10), dtype=torch.bool), 8, 16)
 
 
 @pytest.mark.gpu
@@ -397,6 +406,193 @@ def test_cuda_probe_compact_matches_plain(cap):
     slots = [x.reshape(3, -1, *x.shape[1:]) for x in (lo, hi, flt, table)]
     call = lambda impl: lambda a, c, f, t: ops.probe_compact(
         keys, a, c, f, t, cap, 37, (True, False, False), (), (1, 2), impl)
+    got = torch.func.vmap(call("kernel"))(*slots)
+    for i in range(3):
+        want = call("torch")(*(x[i] for x in slots))
+        for g, w in zip(got, want):
+            assert torch.equal(g[i], w)
+
+
+# --- multiway_compact: one star pattern's rows from the row-GET's ranks ----
+
+# the prefix components' masks a star plan can give (position 1, 1 and 2)
+# and one more
+EXTRA_MASKS = [0, 2, 6, 5]
+
+
+def _star_inputs(seed=17, b=60, r=120):
+    """(the op's inputs, (lo, hi)): the ranks of each binding's row
+    [lo, hi) (subjects 0 and 1 own rows longer than any cap: missed; every
+    fifth binding [0, 0), an invalid one), residual and prefix values over
+    few distinct fields (so they match often), and r rows with origins in
+    every binding, about a fifth of them invalid."""
+    rng = np.random.RandomState(seed)
+    fat = np.arange(80) + 3
+    keys = np.unique(np.concatenate([
+        _distinct_keys(rng, (13, 3, 4), 120),
+        pack3(np.arange(80) % 2, fat, fat % 4)]))
+    v = rng.randint(0, 14, b).astype(np.int64)
+    z = np.zeros(b, np.int64)
+    lo, hi = pack3(v, z, z), pack3(v + 1, z, z)
+    lo[::5], hi[::5] = 0, 0
+    start, end = np.searchsorted(keys, lo), np.searchsorted(keys, hi)
+    flt = np.stack([v, rng.randint(0, 3, b), rng.randint(0, 4, b)], 1)
+    extra = np.stack([v, rng.randint(0, 3, b), rng.randint(0, 4, b)], 1)
+    origin = rng.randint(0, b, r).astype(np.int32)
+    table = rng.randint(0, 1000, (r, 2)).astype(np.int32)
+    valid = rng.rand(r) < 0.8
+    return (keys, start, end, flt, extra, origin, table, valid), (lo, hi)
+
+
+@functools.cache
+def _star_gathered():
+    """`_star_inputs()` and the JAX package's row-GET of them (k, in_row)
+    at row_cap 16, shared by every case."""
+    inputs, (lo, hi) = _star_inputs()
+    k, in_row, _ = j_gather_range(jnp.asarray(inputs[0]), jnp.asarray(lo),
+                                  jnp.asarray(hi), 16)
+    return inputs, k, in_row
+
+
+def _fields(key):
+    return [(int(key) >> ((2 - q) * BITS)) & MAX_ID for q in range(3)]
+
+
+def _star_rows(keys, start, end, flt, extra, origin, table, valid, row_cap,
+               msk, xmsk, eq, new_pos):
+    """One star pattern row by row in numpy: each valid row, then each key
+    among the first `row_cap` of its origin's range that passes the
+    pattern's tests, in (row, slot) order: [(row, origin)]."""
+    rows = []
+    for i in np.nonzero(valid)[0]:
+        o = origin[i]
+        for key in keys[start[o]:min(end[o], start[o] + row_cap)]:
+            f = _fields(key)
+            if all(f[q] == flt[o, q] for q in range(3) if msk[q]) and all(
+                    f[q] == extra[o, q] for q in range(3) if xmsk[q]) and all(
+                    f[a] == f[c] for a, c in eq):
+                rows.append((list(table[i]) + [f[q] for q in new_pos], o))
+    return rows
+
+
+def _cut(rows, out_cap, width):
+    """multiway_compact's outputs of the rows [(row, origin)]: the first
+    `out_cap` kept, zeros after."""
+    kept = min(len(rows), out_cap)
+    out = np.zeros((out_cap, width), np.int32)
+    ori = np.zeros(out_cap, np.int32)
+    for n, (row, o) in enumerate(rows[:kept]):
+        out[n], ori[n] = row, o
+    return (out, np.arange(out_cap) < kept, max(len(rows) - out_cap, 0),
+            len(rows) - out_cap, ori)
+
+
+@pytest.mark.parametrize("out_cap", [1024, 7])
+@pytest.mark.parametrize("eq", [(), ((1, 2),), ((0, 2),), ((0, 1), (0, 2))])
+@pytest.mark.parametrize("xm", EXTRA_MASKS)
+@pytest.mark.parametrize("fm", range(8))
+def test_multiway_compact_plain_matches_reference(fm, xm, eq, out_cap):
+    """Both routes of ``multiway_compact`` on the CPU (the plain version,
+    and the custom op whose CPU implementation it is) against a star join
+    written out row by row, whose rows are also those of the JAX
+    package's row-GET and residual filters: every residual mask, the
+    prefix components' masks, repeat sets, rows longer than row_cap,
+    invalid bindings and rows, a cut at out_cap."""
+    inputs, k, match = _star_gathered()
+    keys, start, end, flt, extra, origin, table, valid = inputs
+    msk = tuple(bool(fm >> i & 1) for i in range(3))
+    xmsk = tuple(bool(xm >> i & 1) for i in range(3))
+    new_pos = NEW_POS[(fm + xm) % 4]
+    rows = _star_rows(*inputs, 16, msk, xmsk, eq, new_pos)
+    match = j_apply_residual(k, match, jnp.asarray(flt), msk, eq)
+    match = np.asarray(j_apply_residual(k, match, jnp.asarray(extra), xmsk))
+    k = np.asarray(k)
+    assert rows == [(list(table[i]) + [_fields(k[o, c])[q] for q in new_pos],
+                     o) for i, o in enumerate(origin) if valid[i]
+                    for c in np.nonzero(match[o])[0]]
+    want = _cut(rows, out_cap, table.shape[1] + len(new_pos))
+    for impl in ("torch", "kernel"):
+        got = ops.multiway_compact(*(T(x) for x in inputs), 16, out_cap, msk,
+                                   xmsk, eq, new_pos, impl)
+        assert [g.dtype for g in got] == [torch.int32, torch.bool,
+                                          torch.int32, torch.int32,
+                                          torch.int32]
+        assert got[2].dim() == got[3].dim() == 0
+        for g, w, what in zip(got, want, ("table", "valid", "dropped", "over",
+                                          "origin")):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                          err_msg=f"{impl} {what}")
+    assert (end - start > 16).any() and not valid.all()
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("out_cap", [1024, 5])
+@pytest.mark.parametrize("bdim", [0, 1])
+def test_multiway_compact_vmap_compacts_each_slot_alone(bdim, out_cap,
+                                                        shared):
+    """vmap over multiway_compact equals the calls slot by slot, each slot
+    cut at its own out_cap, with the batch folded into one call of the op
+    (one launch on a card); origins shared by every slot too, as the
+    first pattern's are."""
+    keys, lo, hi, flt = _fold_inputs()
+    n, b = lo.shape
+    start, end = (torch.searchsorted(keys, x) for x in (lo, hi))
+    rng = np.random.RandomState(4)
+    origin = T(rng.randint(0, b, (n, 2 * b)), dtype=torch.int32)
+    if shared:
+        origin = origin[0]
+    table = T(rng.randint(0, 99, (n, 2 * b, 2)), dtype=torch.int32)
+    valid = T(rng.rand(n, 2 * b) < 0.8)
+    mv = lambda x: x.movedim(0, bdim).contiguous()
+    before = dict(ops.vmap_folds), dict(ops.launches)
+    call = lambda s, e, f, o, t, v: ops.multiway_compact(
+        keys, s, e, f, f, o, t, v, 8, out_cap, (True, False, False),
+        (False, True, False), (), (1, 2))
+    got = torch.func.vmap(call, in_dims=(bdim,) * 3 + (
+        None if shared else bdim, bdim, bdim))(
+        mv(start), mv(end), mv(flt), origin if shared else mv(origin),
+        mv(table), mv(valid))
+    for i in range(n):
+        want = call(start[i], end[i], flt[i],
+                    origin if shared else origin[i], table[i], valid[i])
+        for g, w in zip(got, want):
+            assert torch.equal(g[i], w)
+    assert ops.vmap_folds["multiway_compact"] == (
+        before[0]["multiway_compact"] + 1)
+    assert ops.launches == before[1]             # the CPU runs no kernel
+    assert bool(got[1].any()) and (out_cap > 5 or int(got[2].min()) > 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("row_cap", [8, 33, 64, 256])
+def test_cuda_multiway_compact_matches_plain(row_cap):
+    """The CUDA kernels against the plain version, bit for bit: every
+    residual mask, the prefix components' masks, three repeat sets, rows
+    longer than row_cap, invalid bindings and rows, an out_cap that cuts
+    and one that does not, one slot and three slots folded under vmap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    inputs = [T(x, device=dev) for x in _star_inputs(row_cap, 600, 900)[0]]
+    for fm in range(8):
+        msk = tuple(bool(fm >> i & 1) for i in range(3))
+        for xm in EXTRA_MASKS:
+            xmsk = tuple(bool(xm >> i & 1) for i in range(3))
+            for eq in ((), ((1, 2),), ((0, 2),)):
+                for out_cap in (1 << 16, 37):
+                    args = (*inputs, row_cap, out_cap, msk, xmsk, eq,
+                            NEW_POS[(fm + xm) % 4])
+                    got = ops.multiway_compact(*args, "kernel")
+                    want = ops.multiway_compact(*args, "torch")
+                    for g, w in zip(got, want):
+                        assert torch.equal(g, w), (fm, xm, eq, out_cap)
+    keys, per_b, per_r = inputs[0], inputs[1:5], inputs[5:]
+    slots = ([x.reshape(3, -1, *x.shape[1:]) for x in per_b]
+             + [x.reshape(3, -1, *x.shape[1:]) for x in per_r])
+    slots[4] = slots[4] % 200                    # origins within a slot
+    call = lambda impl: lambda *a: ops.multiway_compact(
+        keys, *a, row_cap, 37, (False, False, True), (False, True, False), (),
+        (2,), impl)
     got = torch.func.vmap(call("kernel"))(*slots)
     for i in range(3):
         want = call("torch")(*(x[i] for x in slots))

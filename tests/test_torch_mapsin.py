@@ -195,6 +195,50 @@ def test_multiway_step(seed, star, row_cap, out_cap):
     _same(got, want)
 
 
+# stars with a residual on the fetched row and a repeat in it
+STARS_FILTERED = STARS + [
+    (Pattern("?x", "?q", 4), Pattern("?x", P + 2, "?b")),
+    (Pattern("?x", P + 1, "?a"), Pattern("?x", "?r", "?r"))]
+
+
+@pytest.mark.parametrize("seed", range(2))
+@pytest.mark.parametrize("star", STARS_FILTERED,
+                         ids=lambda s: "-".join(map(str, s)))
+@pytest.mark.parametrize("row_cap,out_cap", [(8, 256), (4, 16)])
+def test_multiway_compact_is_the_merge_of_the_row(seed, star, row_cap,
+                                                  out_cap):
+    """``multiway_step``'s one op a pattern, both routes, equals
+    ``multiway_merge`` over ``gather_range``'s row, row order, each
+    pattern's cut and ``found`` included, and the step equals the JAX
+    package's."""
+    _, ts, js = _stores(seed, ids=15)
+    rng = np.random.RandomState(seed + 30)
+    b = 30
+    table = rng.randint(0, 16, (b, 1)).astype(np.int32)
+    valid = rng.rand(b) < 0.8
+    tb, jb = _bindings(("?x",), table, valid, overflow=3)
+    pats = [pattern_from(p) for p in star]
+    plans = [tplan.make_plan(p, tb.vars) for p in pats]
+    keys = ts.flat_keys(0)
+    lo, hi = tplan.row_range(plans[0], tb.table)
+    k, in_row, missed = tms.gather_range(keys, torch.where(tb.valid, lo, 0),
+                                         torch.where(tb.valid, hi, 0),
+                                         row_cap, impl="torch")
+    f_merge = []
+    want = tms.multiway_merge(tb, plans, k, in_row, missed, out_cap,
+                              found=f_merge)
+    ref = _jit(jms.multiway_step, (1, 3, 4))(jb, tuple(star),
+                                             js.flat_keys(0), row_cap, out_cap)
+    _same(want, ref)
+    for impl in ("torch", "kernel"):
+        f_step = []
+        got = tms.multiway_step(tb, pats, keys, row_cap, out_cap, impl,
+                                found=f_step)
+        _same(got, ref)
+        assert [(int(o), n, c) for o, n, c in f_step] == [
+            (int(o), n, c) for o, n, c in f_merge]
+
+
 @pytest.mark.parametrize("seed", range(2))
 @pytest.mark.parametrize("pat", [Pattern("?y", P + 2, "?z"),
                                  Pattern("?z", P + 1, "?x"),

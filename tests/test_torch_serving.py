@@ -647,8 +647,11 @@ def test_dispatch_folds_once_per_step_whatever_the_batch(graph):
             eng.precompile(_tq(pats), batches=[b])
             folds.add(tuple(ops.vmap_folds[k] - before[k]
                             for k in ("searchsorted", "probe_gather",
-                                      "probe_compact")))
+                                      "probe_compact", "multiway_compact")))
         assert len(folds) == 1 and sum(next(iter(folds))) > 0
+        # the star's multiway step folds once for each of its two patterns
+        # (the seed scan takes the first)
+        assert next(iter(folds))[3] == (2 if pats is star else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -680,7 +683,7 @@ def test_kernel_engine_matches_torch_engine_on_the_card(tenants):
             per_tid.setdefault((_impl, tid), set()).add(
                 tuple(ops.launches[k] - before[k]
                       for k in ("searchsorted", "probe_gather",
-                                "probe_compact")))
+                                "probe_compact", "multiway_compact")))
             return res
         eng._dispatch = counted
         out[impl] = eng.execute(queries)
@@ -688,7 +691,7 @@ def test_kernel_engine_matches_torch_engine_on_the_card(tenants):
     for (impl, tid), counts in per_tid.items():
         assert len(counts) == 1, (impl, tid, counts)
         assert sum(next(iter(counts))) > 0 if impl == "kernel" else \
-            counts == {(0, 0, 0)}
+            counts == {(0, 0, 0, 0)}
 
 
 # ---------------------------------------------------------------------------
