@@ -996,6 +996,42 @@ def profile_query(torch, run, name: str, reps: int = 3) -> None:
             f" x{e.count // reps}" for e in top))
 
 
+def check_probe_gather(torch, ops, x: dict) -> dict:
+    """probe_gather's kernel against its plain version at one call's
+    recorded arguments `x` (`all_call_args`), both timed, beside the bound
+    of the bytes this input needs."""
+    keys, lo, hi, flt, cap = x["keys"], x["lo"], x["hi"], x["flt"], x["cap"]
+    msk, eq = x["flt_mask"], x["eq_positions"]
+    args = (keys, lo, hi, flt, cap, msk, eq)
+    got = ops.probe_gather(*args, "kernel")
+    want = ops.probe_gather(*args, "torch")
+    err = int((got[0] - want[0]).abs().max())
+    mism = sum(int((a != b).sum()) for a, b in zip(got, want))
+    t_k = cuda_ms(torch, lambda: ops.probe_gather(*args, "kernel"))
+    t_p = cuda_ms(torch, lambda: ops.probe_gather(*args, "torch"), iters=3)
+    b = lo.numel()
+    start = torch.searchsorted(keys, lo)
+    end = torch.searchsorted(keys, hi)
+    in_range = int((end - start).clamp(min=0, max=cap).sum())
+    live = int((lo < hi).sum())
+    nonempty = int((end > start).sum())
+    depth = max(keys.numel(), 1).bit_length()
+    # what this run's data needs: each probe's lo and hi read once, both
+    # searches of each live probe (lo < hi), the filter values at the
+    # flt_mask positions of each probe whose range holds a key, the
+    # in-range keys the slots take, and the outputs (keys, flags, missed)
+    # written once
+    needed = (b * 16 + live * 2 * depth * 8 + nonempty * sum(msk) * 8
+              + in_range * 8 + b * 4)
+    nbytes = needed + b * cap * 9
+    return dict(max_abs_err=err, mismatches=mism, ms=t_k, plain_ms=t_p,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, b=b, live=live,
+                in_range=in_range, needed=needed,
+                shape=f"M={keys.numel()} B={b} cap={cap} flt_mask={msk} "
+                      f"live_probes={live} nonempty_probes={nonempty} "
+                      f"in_range_keys={in_range}")
+
+
 def time_kernels(torch, main: dict, fuzz: dict, floor) -> list:
     """Each kernel at the inputs the main path gives it, recorded from one
     execute_local run: the first rank-find of the first query with a
@@ -1038,38 +1074,16 @@ def time_kernels(torch, main: dict, fuzz: dict, floor) -> list:
     name, x = args_of("probe_compact", "mapsin")
     keys, lo, hi, flt, cap = x["keys"], x["lo"], x["hi"], x["flt"], x["cap"]
     msk, eq, table = x["flt_mask"], x["eq_positions"], x["table"]
-    args = (keys, lo, hi, flt, cap, msk, eq)
-    got = ops.probe_gather(*args, "kernel")
-    want = ops.probe_gather(*args, "torch")
-    err = int((got[0] - want[0]).abs().max())
-    mism = sum(int((a != b).sum()) for a, b in zip(got, want))
-    t_k = cuda_ms(torch, lambda: ops.probe_gather(*args, "kernel"))
-    t_p = cuda_ms(torch, lambda: ops.probe_gather(*args, "torch"), iters=3)
-    b = lo.numel()
-    start = torch.searchsorted(keys, lo)
-    end = torch.searchsorted(keys, hi)
-    in_range = int((end - start).clamp(min=0, max=cap).sum())
-    live = int((lo < hi).sum())
-    nonempty = int((end > start).sum())
-    depth = max(keys.numel(), 1).bit_length()
-    # what this run's data needs: each probe's lo and hi read once, both
-    # searches of each live probe (lo < hi), the filter values at the
-    # flt_mask positions of each probe whose range holds a key, the
-    # in-range keys the slots take, and the outputs (keys, flags, missed)
-    # written once
-    needed = (b * 16 + live * 2 * depth * 8 + nonempty * sum(msk) * 8
-              + in_range * 8 + b * 4)
-    nbytes = needed + b * cap * 9
+    g = check_probe_gather(torch, ops, x)
+    b, live, in_range, needed = g["b"], g["live"], g["in_range"], g["needed"]
     out.append(dict(name="probe_gather", **KERNELS["probe_gather"],
                     launches=main["launches"]["probe_gather"],
-                    max_abs_err=err, mismatches=fz["probe_gather"]["mismatches"]
-                    + mism, ms=t_k, plain_ms=t_p,
-                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                    max_abs_err=g["max_abs_err"],
+                    mismatches=fz["probe_gather"]["mismatches"]
+                    + g["mismatches"], ms=g["ms"], plain_ms=g["plain_ms"],
+                    bound_ms=g["bound_ms"], bound_by="bytes",
                     library_ms=None,
-                    shape=f"{name}, first mapsin GET: M={keys.numel()} B={b} "
-                          f"cap={cap} flt_mask={msk} live_probes={live} "
-                          f"nonempty_probes={nonempty} "
-                          f"in_range_keys={in_range}"))
+                    shape=f"{name}, first mapsin GET: {g['shape']}"))
 
     # probe_compact at the same step: the GET and the merge in one
     out_cap, new_pos = x["out_cap"], tuple(x["new_pos"])
@@ -2095,13 +2109,13 @@ def counted(torch, ops, tally: dict, run):
     distributed path (execute_sharded, the sharded engine) go through
     here; their checks, oracles, ingests and timed repeats run outside, so
     `tally` counts the path's launches and nothing else. Returns
-    (run's result, its searchsorted launches)."""
+    (run's result, its launches by kernel)."""
     ops.reset_launches()
     out = run()
     torch.cuda.synchronize()
     for k, v in ops.launches.items():
         tally[k] = tally.get(k, 0) + v
-    return out, ops.launches["searchsorted"]
+    return out, dict(ops.launches)
 
 
 def run_distributed(torch, args, lubm: dict, floor, failures: list) -> dict:
@@ -2113,9 +2127,11 @@ def run_distributed(torch, args, lubm: dict, floor, failures: list) -> dict:
     serving stream through ServeEngine(mesh=...) against the sequential
     execute_sharded loop; (c) the 1% fault rows and the drop + corrupt
     canary; (d) the sharded engine over a MutableTripleStore(8 shards)
-    across ingests, against the oracle. Returns the searchsorted launches
-    of the path's counted runs (`counted`), the mismatches of the phase
-    and the kernel's times at the answer phase's shapes."""
+    across ingests, against the oracle. Returns the searchsorted and
+    probe_gather launches of the path's counted runs (`counted`), the
+    mismatches of each kernel at the answer phase's recorded inputs and
+    its times there: a2a answers through gather_range's searchsorted,
+    broadcast through probe_gather."""
     from repro_torch.core import (Caps, ExecConfig, LocalMesh, build_store,
                                   compile_plan, execute_local,
                                   execute_sharded)
@@ -2164,10 +2180,12 @@ def run_distributed(torch, args, lubm: dict, floor, failures: list) -> dict:
             outs = {}
             for impl in ("kernel", "torch"):
                 cfg = ExecConfig(impl=impl, routing=routing)
-                outs[impl], rec[f"ss_{routing}_{impl}"] = counted(
+                outs[impl], n = counted(
                     torch, ops, tally["a"],
                     lambda c=cfg: execute_sharded(store, pats, mesh,
                                                   "mapsin", c, caps=caps))
+                rec[f"ss_{routing}_{impl}"] = n["searchsorted"]
+                rec[f"pg_{routing}_{impl}"] = n["probe_gather"]
             t, v, o, vars_ = outs["kernel"]
             same = all(torch.equal(a, b) for a, b in
                        zip(outs["kernel"][:3], outs["torch"][:3]))
@@ -2190,7 +2208,7 @@ def run_distributed(torch, args, lubm: dict, floor, failures: list) -> dict:
             failures.append(f"dist: {name}: a2a and broadcast rows differ")
         rec["reduce_ms"] = wall_ms(torch, lambda: execute_sharded(
             store, pats, mesh, "reduce", kern, caps=rcaps), runs=1)
-        (t, v, o, vars_), rec["ss_reduce"] = counted(
+        (t, v, o, vars_), _ = counted(
             torch, ops, tally["a"], lambda: execute_sharded(
                 store, pats, mesh, "reduce", kern, caps=rcaps))
         rec["reduce_ovf"] = int(o.sum())
@@ -2203,20 +2221,22 @@ def run_distributed(torch, args, lubm: dict, floor, failures: list) -> dict:
         per_query[name] = rec
         if any(st["kind"] != "scan" for st in stats):
             answer_inputs[name] = (pats, caps)
-            for routing in ("a2a", "broadcast"):
-                if rec[f"ss_{routing}_kernel"] <= 0:
-                    failures.append(f"dist: {name} {routing}: "
-                                    f"execute_sharded never launched the "
-                                    f"searchsorted kernel")
+            if rec["ss_a2a_kernel"] <= 0:
+                failures.append(f"dist: {name} a2a: execute_sharded never "
+                                f"launched the searchsorted kernel")
+            if rec["pg_broadcast_kernel"] <= 0:
+                failures.append(f"dist: {name} broadcast: execute_sharded "
+                                f"never launched the probe_gather kernel")
     t_a = time.perf_counter() - t_a
     tag = f"({card})"
     log(f"[dist] (a) execute_sharded, {len(per_query)} queries: "
         f"{t_a:.1f} s; a2a/broadcast ms: median of {DIST_RUNS} after a "
-        f"warm-up; reduce ms: one run after a warm-up; ss: searchsorted "
-        f"launches of one checked kernel run, counted alone {tag}")
+        f"warm-up; reduce ms: one run after a warm-up; ss/pg: searchsorted "
+        f"launches of one checked a2a kernel run, probe_gather launches of "
+        f"one checked broadcast kernel run, each counted alone {tag}")
     log(f"[dist] {'query':5s} {'steps':28s} {'rows':>6s} {'out_cap':>7s} "
         f"{'a2a_ms':>9s} {'bcast_ms':>9s} {'ratio':>6s} {'reduce_ms':>9s} "
-        f"{'a2a_B':>9s} {'bcast_B':>11s} {'ss a2a/bc':>9s} {'peak_GiB':>8s}")
+        f"{'a2a_B':>9s} {'bcast_B':>11s} {'ss/pg':>9s} {'peak_GiB':>8s}")
     for name, r in per_query.items():
         note = (f" reduce overflow {r['reduce_ovf']} (caps scan "
                 f"{r['rcaps'].scan_cap}, bucket {r['rcaps'].bucket_cap})"
@@ -2226,7 +2246,7 @@ def run_distributed(torch, args, lubm: dict, floor, failures: list) -> dict:
             f"{r['broadcast_ms']:9.3f} "
             f"{r['broadcast_ms'] / r['a2a_ms']:6.2f} {r['reduce_ms']:9.3f} "
             f"{r['a2a_payload']:9d} {r['broadcast_payload']:11d} "
-            f"{r['ss_a2a_kernel']:4d}/{r['ss_broadcast_kernel']:<4d} "
+            f"{r['ss_a2a_kernel']:4d}/{r['pg_broadcast_kernel']:<4d} "
             f"{r['peak'] / 2 ** 30:8.3f} kernel==torch "
             f"{r['a2a_same'] and r['broadcast_same']}; broadcast "
             f"reckoning {r['bcast_bytes'] / 2 ** 30:.3f} GiB{note} {tag}")
@@ -2234,26 +2254,38 @@ def run_distributed(torch, args, lubm: dict, floor, failures: list) -> dict:
         f"(mapsin: 2 routings x 2 impls; reduce: 1), each counted alone "
         f"{tally['a']} {tag}")
 
-    # the kernel at the answer phase's own inputs: of the query with the
-    # widest join input, the rank-find of the shard that answers the most
-    # probes, recorded from a real run
+    # each kernel at the answer phase's own inputs, recorded from a real
+    # run of the query with the widest join input: a2a's rank-find of the
+    # shard that answers the most distinct probes, broadcast's fused GET of
+    # the shard that answers the most live probes
     name = max(answer_inputs, key=lambda n: per_query[n]["caps"].out_cap)
     pats, caps = answer_inputs[name]
+    run = lambda routing: lambda: execute_sharded(
+        store, pats, mesh, "mapsin", ExecConfig(impl="kernel",
+                                                routing=routing), caps=caps)
     timings = {}
-    for routing in ("a2a", "broadcast"):
-        cfg = ExecConfig(impl="kernel", routing=routing)
-        calls = all_call_args(ops, "searchsorted", lambda: execute_sharded(
-            store, pats, mesh, "mapsin", cfg, caps=caps))
-        x = max(calls, key=lambda a: int(torch.unique(a["queries"]).numel()))
-        keys, q = x["keys"].contiguous(), x["queries"].contiguous()
-        got = ops.searchsorted(keys, q, "kernel")
-        if not torch.equal(got, ops.searchsorted(keys, q, "torch")):
-            mism += 1
-            failures.append(f"dist: searchsorted at {name}'s {routing} "
-                            f"answer phase differs from its plain version")
-        timings[f"{name} {routing} answer phase"] = time_searchsorted(
-            torch, ops, floor, keys, q,
-            f"{name}, {routing} answer phase of one shard")
+    calls = all_call_args(ops, "searchsorted", run("a2a"))
+    x = max(calls, key=lambda a: int(torch.unique(a["queries"]).numel()))
+    keys, q = x["keys"].contiguous(), x["queries"].contiguous()
+    got = ops.searchsorted(keys, q, "kernel")
+    if not torch.equal(got, ops.searchsorted(keys, q, "torch")):
+        mism += 1
+        failures.append(f"dist: searchsorted at {name}'s a2a answer phase "
+                        f"differs from its plain version")
+    timings[f"{name} a2a answer phase"] = time_searchsorted(
+        torch, ops, floor, keys, q, f"{name}, a2a answer phase of one shard")
+    calls = all_call_args(ops, "probe_gather", run("broadcast"))
+    x = max(calls, key=lambda a: int((a["lo"] < a["hi"]).sum()))
+    g = check_probe_gather(torch, ops, x)
+    if g["mismatches"]:
+        failures.append(f"dist: probe_gather at {name}'s broadcast answer "
+                        f"phase differs from its plain version in "
+                        f"{g['mismatches']} entries")
+    log(f"[timing] probe_gather {name}, broadcast answer phase of one "
+        f"shard: {g['shape']}: ms={g['ms']:.6f} plain_ms={g['plain_ms']:.6f}"
+        f" bound_ms={g['bound_ms']:.6f} ({100 * g['bound_ms'] / g['ms']:.1f}%"
+        f" of the bound) {tag}")
+    pg_timings = {f"{name} broadcast answer phase": g}
 
     # (b)-(d): the engine's runs counted alone, as in (a)
     count = lambda part, run: counted(torch, ops, tally[part], run)
@@ -2269,14 +2301,26 @@ def run_distributed(torch, args, lubm: dict, floor, failures: list) -> dict:
             f"launches of its sharded-engine runs, each counted alone "
             f"{tally[part]} {tag}")
     total = sum(t.get("searchsorted", 0) for t in tally.values())
-    if any(t.get("probe_gather", 0) for t in tally.values()):
-        failures.append("dist: a counted run launched probe_gather, which "
-                        "the distributed path never runs: the counts hold "
-                        "launches from outside the path")
+    pg = sum(t.get("probe_gather", 0) for t in tally.values())
+    if any(t.get(k, 0) for t in tally.values()
+           for k in ("probe_compact", "multiway_compact")):
+        failures.append("dist: a counted run launched probe_compact or "
+                        "multiway_compact, which the distributed path never "
+                        "runs: the counts hold launches from outside the "
+                        "path")
+    if tally["b-c"].get("probe_gather", 0) or tally["d"].get(
+            "probe_gather", 0):
+        failures.append("dist: an a2a engine run launched probe_gather, "
+                        "which only the broadcast routing runs")
     if total <= 0:
         failures.append("dist: the distributed path never launched the "
                         "searchsorted kernel")
-    return dict(launches=total, mismatches=mism, answer_timings=timings)
+    if pg <= 0:
+        failures.append("dist: the broadcast routing never launched the "
+                        "probe_gather kernel")
+    return dict(launches=total, mismatches=mism, answer_timings=timings,
+                pg_launches=pg, pg_mismatches=g["mismatches"],
+                pg_answer_timings=pg_timings)
 
 
 def _bnd(table, valid, vars_):
@@ -2358,7 +2402,8 @@ def run_sharded_serving(torch, args, x: dict, count, failures: list) -> None:
     for p in {tuple(p): p for p in reqs}:
         eng._compile(p)
     t0 = time.perf_counter()
-    results, ss = count("b-c", lambda: eng.execute(reqs))  # warm-up + check
+    results, n_launch = count("b-c", lambda: eng.execute(reqs))  # warm-up
+    ss = n_launch["searchsorted"]
     warm_s = time.perf_counter() - t0
     ok, _, ovf = check(reqs, results, "sharded engine")
     if ss <= 0:
@@ -2545,7 +2590,9 @@ def run_sharded_mutable(torch, args, mesh, card: str, count,
             orders = {q: eng._compile(tuple(p)).patterns
                       for q, p in pats.items()}
             t0 = time.perf_counter()
-            results, ss = count("d", lambda: eng.execute(list(pats.values())))
+            results, n_launch = count("d", lambda: eng.execute(
+                list(pats.values())))
+            ss = n_launch["searchsorted"]
             serve_s = time.perf_counter() - t0
             if ss <= 0:
                 failures.append(f"dist: mutable wave {w}: the sharded "
@@ -5319,6 +5366,14 @@ def main() -> int:
             label: {k: t[k] for k in ("ms", "library_ms", "plain_ms",
                                       "floor_ms", "bound_ms")}
             for label, t in dist["answer_timings"].items()}
+    pg = next((k for k in kernels if k["name"] == "probe_gather"), None)
+    if dist is not None and pg is not None:
+        pg["launches"] += dist["pg_launches"]
+        pg["dist_launches"] = dist["pg_launches"]
+        pg["mismatches"] += dist["pg_mismatches"]
+        pg["answer_shapes"] = {
+            label: {k: t[k] for k in ("ms", "plain_ms", "bound_ms")}
+            for label, t in dist["pg_answer_timings"].items()}
     del lubm
     torch.cuda.empty_cache()
     t_phase = phase_done("distributed", t_phase)

@@ -29,7 +29,8 @@ import torch
 from repro_torch.core import distributed as dist
 from repro_torch.core import mapsin as ms
 from repro_torch.core import reduce_side as rs
-from repro_torch.core.plan import make_plan, probe_ranges, row_range
+from repro_torch.core.plan import (by_index, make_plan, probe_ranges,
+                                   row_range)
 from repro_torch.core.planner import (  # noqa: F401  (re-exported API surface)
     ALL_OPERATORS, Caps, LogicalPlan, PhysicalPlan, PlanStep, _host_keys,
     compile_plan, explain, order_patterns, pattern_cardinality, quantize_cap)
@@ -151,6 +152,27 @@ def query_traffic(query, mode: str, caps: Caps = Caps(),
 # ---------------------------------------------------------------------------
 
 
+def local_step(bnd: ms.Bindings, st: PlanStep, keys_spo, keys_ops,
+               impl: str, found: list | None = None) -> ms.Bindings:
+    """One join step of the local cascade (any step but the first
+    pattern's scan) at the step's own caps: the operator the planner
+    chose for it, on the index ``by_index`` picks. `found` goes to the
+    step's ``compact`` calls (mapsin.py)."""
+    c = st.caps
+    if st.kind == "reduce_side":     # relation scanned fresh: empty domain
+        for pat in st.patterns:
+            bnd = rs.local_reduce_step(
+                bnd, pat, by_index(pat, (), keys_spo, keys_ops), c.scan_cap,
+                c.probe_cap, c.out_cap, impl, found)
+        return bnd
+    keys = by_index(st.patterns[0], bnd.vars, keys_spo, keys_ops)
+    if st.kind == "multiway":
+        return ms.multiway_step(bnd, st.patterns, keys, c.row_cap, c.out_cap,
+                                impl, found)
+    return ms.mapsin_step(bnd, st.patterns[0], keys, c.probe_cap, c.out_cap,
+                          impl, found)
+
+
 def _cascade_body(plan: PhysicalPlan, cfg: ExecConfig):
     """The whole-cascade computation:
     (keys_spo, keys_ops, scratch, tracer=None) -> (Bindings, counts).
@@ -171,30 +193,18 @@ def _cascade_body(plan: PhysicalPlan, cfg: ExecConfig):
     names = tuple("bgp." + st.kind for st in steps)
 
     def fn(keys_spo, keys_ops, scratch, tracer: Tracer | None = None):
-        keys_of = lambda pat, dom: (keys_spo if make_plan(pat, dom).index == 0
-                                    else keys_ops)
         bnd, ovfs, founds = None, [], []
         for i, st in enumerate(steps):
-            c, found = st.caps, []
+            found = []
             with optional_span(tracer, names[i], step=i) as sp:
                 if st.kind == "scan":
-                    bnd = ms.scan_pattern(first, keys_of(first, ()),
-                                          c.out_cap, cfg.impl,
-                                          scratch=scratch, found=found)
-                elif st.kind == "multiway":
-                    keys = keys_of(st.patterns[0], bnd.vars)
-                    bnd = ms.multiway_step(bnd, st.patterns, keys, c.row_cap,
-                                           c.out_cap, cfg.impl, found)
-                elif st.kind == "mapsin":
-                    keys = keys_of(st.patterns[0], bnd.vars)
-                    bnd = ms.mapsin_step(bnd, st.patterns[0], keys,
-                                         c.probe_cap, c.out_cap, cfg.impl,
-                                         found)
-                else:            # reduce_side: relation scanned fresh
-                    for pat in st.patterns:
-                        bnd = rs.local_reduce_step(
-                            bnd, pat, keys_of(pat, ()), c.scan_cap,
-                            c.probe_cap, c.out_cap, cfg.impl, found)
+                    bnd = ms.scan_pattern(
+                        first, by_index(first, (), keys_spo, keys_ops),
+                        st.caps.out_cap, cfg.impl, scratch=scratch,
+                        found=found)
+                else:
+                    bnd = local_step(bnd, st, keys_spo, keys_ops, cfg.impl,
+                                     found)
             ovfs.append(bnd.overflow)
             founds.append(found[-1][0])
             if sp is not None:
@@ -339,11 +349,11 @@ def _probe_fanout(store: TripleStore, plan, bnd: ms.Bindings, s: int,
 def _execute_local_instrumented(store: TripleStore, plan: PhysicalPlan,
                                 cfg: ExecConfig, stats: list):
     steps = plan.steps
-    keys_of = lambda pat, dom: store.flat_keys(make_plan(pat, dom).index)
+    keys_spo, keys_ops = store.flat_keys(0), store.flat_keys(1)
     s_route = plan.route_shards
     t0 = clock()
-    bnd = ms.scan_pattern(steps[0].patterns[0],
-                          keys_of(steps[0].patterns[0], ()),
+    first = steps[0].patterns[0]
+    bnd = ms.scan_pattern(first, by_index(first, (), keys_spo, keys_ops),
                           steps[0].caps.out_cap, cfg.impl)
     ovf_prev = int(bnd.overflow)
     ovf_cum = [ovf_prev]
@@ -360,30 +370,17 @@ def _execute_local_instrumented(store: TripleStore, plan: PhysicalPlan,
         t0 = clock()
         n_in, nv_in = int(bnd.count()), len(bnd.vars)
         deliveries = max_region = probe_len = 0
-        if st.kind == "multiway":
-            keys = keys_of(st.patterns[0], bnd.vars)
-            plan0 = make_plan(st.patterns[0], bnd.vars)
+        if st.kind in ("mapsin", "multiway"):     # the GET's routing
             deliveries, max_region, probe_len = _probe_fanout(
-                store, plan0, bnd, s_route, whole_row=True)
-            bnd = ms.multiway_step(bnd, st.patterns, keys, c.row_cap,
-                                   c.out_cap, cfg.impl)
-        elif st.kind == "mapsin":
-            keys = keys_of(st.patterns[0], bnd.vars)
-            plan0 = make_plan(st.patterns[0], bnd.vars)
-            deliveries, max_region, probe_len = _probe_fanout(
-                store, plan0, bnd, s_route)
-            bnd = ms.mapsin_step(bnd, st.patterns[0], keys, c.probe_cap,
-                                 c.out_cap, cfg.impl)
-        else:                    # reduce_side re-scans with an empty domain
-            for pat in st.patterns:
-                keys = keys_of(pat, ())
-                bnd = rs.local_reduce_step(bnd, pat, keys, c.scan_cap,
-                                           c.probe_cap, c.out_cap, cfg.impl)
+                store, make_plan(st.patterns[0], bnd.vars), bnd, s_route,
+                whole_row=st.kind == "multiway")
+        bnd = local_step(bnd, st, keys_spo, keys_ops, cfg.impl)
         n_out = int(bnd.count())         # host sync: the step's work is done
         t1 = clock()                     # before the relation-scan extras
         rel = 0
         for pat in st.patterns:
-            r = ms.scan_pattern(pat, keys_of(pat, ()), c.scan_cap, cfg.impl)
+            r = ms.scan_pattern(pat, by_index(pat, (), keys_spo, keys_ops),
+                                c.scan_cap, cfg.impl)
             rel += int(r.count())
         ovf_now = int(bnd.overflow)
         stats.append({"kind": st.kind, "n_in": n_in,
@@ -466,18 +463,32 @@ def query_traffic_actual(stats: list, mode: str, num_shards: int,
 # ---------------------------------------------------------------------------
 
 
-def apply_dist_step(bnd: ms.Bindings, st: PlanStep, keys, splits,
-                    cfg: ExecConfig, comm, batched: bool = False,
-                    fault=None, with_check: bool = False):
-    """One distributed MAPSIN cascade step (join or multiway star) at the
-    step's OWN caps — the shared dispatch behind execute_sharded's
-    per-shard body and the serving engine's batched template cascade
-    (`batched=True` expects Bindings with a leading query axis and routes
-    the whole batch through ONE collective round per step).
+def apply_dist_step(bnd: ms.Bindings, st: PlanStep, keys_spo, keys_ops,
+                    splits_spo, splits_ops, cfg: ExecConfig, comm,
+                    batched: bool = False, fault=None,
+                    with_check: bool = False):
+    """One distributed cascade step (any step but the first pattern's
+    scan) at the step's OWN caps, on the index ``by_index`` picks (this
+    shard's keys, the store's region splits) — the one dispatch behind
+    execute_sharded's per-shard body and the serving engine's batched
+    template cascade (`batched=True` expects Bindings with a leading
+    query axis and routes the whole batch through ONE collective round
+    per step; a batched reduce_side step raises ValueError).
     `fault`/`with_check` hook the a2a answer-leg integrity machinery
     (serve/faults.py): with_check returns ``(Bindings, bad)`` and
     requires the batched a2a path."""
     c = st.caps
+    if st.kind == "reduce_side":     # relation scanned fresh: empty domain
+        if batched:
+            raise ValueError("a batched (seeded template) cascade cannot "
+                             "run reduce_side steps")
+        for pat in st.patterns:
+            bnd = rs.dist_reduce_step(
+                bnd, pat, by_index(pat, (), keys_spo, keys_ops), c.scan_cap,
+                c.bucket_cap, c.probe_cap, c.out_cap, comm, cfg.impl)
+        return bnd
+    keys = by_index(st.patterns[0], bnd.vars, keys_spo, keys_ops)
+    splits = by_index(st.patterns[0], bnd.vars, splits_spo, splits_ops)
     extra = ({"fault": fault, "with_check": with_check}
              if batched and (fault is not None or with_check) else {})
     if st.kind == "multiway":
@@ -492,38 +503,22 @@ def apply_dist_step(bnd: ms.Bindings, st: PlanStep, keys, splits,
               bucket_cap=c.a2a_bucket_cap, **extra)
 
 
-
 def _sharded_fn(plan: PhysicalPlan, cfg: ExecConfig, splits_spo=None,
                 splits_ops=None):
     """The per-shard body of `plan`: (comm, this shard's keys_spo row,
     keys_ops row) -> (table (out_cap, nv), valid, overflow (1,)). The
     splits are the store's device tensors, taken once per closure."""
     steps = plan.steps
+    first = steps[0].patterns[0]
 
     def fn(comm, keys_spo, keys_ops):
         keys_spo = keys_spo.reshape(-1)
         keys_ops = keys_ops.reshape(-1)
-        keys_of = lambda pat, dom: (keys_spo if make_plan(pat, dom).index == 0
-                                    else keys_ops)
-        splits_of = lambda pat, dom: (splits_spo
-                                      if make_plan(pat, dom).index == 0
-                                      else splits_ops)
-        bnd = ms.scan_pattern(steps[0].patterns[0],
-                              keys_of(steps[0].patterns[0], ()),
+        bnd = ms.scan_pattern(first, by_index(first, (), keys_spo, keys_ops),
                               steps[0].caps.out_cap, cfg.impl)
         for st in steps[1:]:
-            c = st.caps
-            if st.kind in ("mapsin", "multiway"):
-                keys = keys_of(st.patterns[0], bnd.vars)
-                bnd = apply_dist_step(
-                    bnd, st, keys, splits_of(st.patterns[0], bnd.vars),
-                    cfg, comm)
-            else:
-                for pat in st.patterns:
-                    keys = keys_of(pat, ())  # relation scan: empty domain
-                    bnd = rs.dist_reduce_step(bnd, pat, keys, c.scan_cap,
-                                              c.bucket_cap, c.probe_cap,
-                                              c.out_cap, comm, cfg.impl)
+            bnd = apply_dist_step(bnd, st, keys_spo, keys_ops, splits_spo,
+                                  splits_ops, cfg, comm)
         return bnd.table, bnd.valid, bnd.overflow[None]
     return fn
 

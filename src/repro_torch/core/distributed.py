@@ -39,10 +39,11 @@ import torch
 
 from repro_torch.common import ceil_div
 from repro_torch.core.mapsin import (Bindings, apply_residual, gather_range,
-                                     merge_bindings, multiway_merge)
-from repro_torch.core.plan import (make_plan, probe_ranges, residual_values,
-                                   row_range)
+                                     merge_bindings, multiway_merge,
+                                     probe_inputs)
+from repro_torch.core.plan import make_plan, row_range
 from repro_torch.core.triple_store import range_intersects_region
+from repro_torch.kernels import ops
 
 
 def _my_region(shard_splits, comm):
@@ -303,9 +304,10 @@ def dist_probe(lo, hi, flt, msk, eq_positions, local_keys, probe_cap: int,
         hit = range_intersects_region(LO, HI, *region)
         LO = torch.where(hit, LO, 0)
         HI = torch.where(hit, HI, 0)
-    # --- local index lookups (each shard answers its key range) ---
-    k, valid, missed = gather_range(local_keys, LO, HI, probe_cap, impl)
-    valid = apply_residual(k, valid, FLT, msk, eq_positions)
+    # --- local index lookups (each shard answers its key range): the
+    # fused GET, whose keys at invalid slots the write below masks ---
+    k, valid, missed = ops.probe_gather(local_keys, LO, HI, FLT, probe_cap,
+                                        msk, eq_positions, impl)
     cnt = valid.sum(-1, dtype=torch.int32)                       # (S*B,)
     # --- compose per-shard offsets so concatenation is exact ---
     CNT = comm.all_gather(cnt)                                   # (S, S*B)
@@ -335,10 +337,7 @@ def dist_mapsin_step(bnd: Bindings, pattern, local_keys, probe_cap: int,
                      bucket_cap: int = 0) -> Bindings:
     """Algorithm 1, distributed: Omega stays in place; only keys + matches move."""
     plan = make_plan(pattern, bnd.vars)
-    lo, hi = probe_ranges(plan, bnd.table)
-    lo = torch.where(bnd.valid, lo, 0)
-    hi = torch.where(bnd.valid, hi, 0)
-    flt, msk = residual_values(plan, bnd.table)
+    lo, hi, flt, msk = probe_inputs(plan, bnd.table, bnd.valid)
     k, valid, missed = dist_probe(lo, hi, flt, msk, plan.eq_positions,
                                   local_keys, probe_cap, comm, impl,
                                   region=_my_region(shard_splits, comm),
@@ -431,12 +430,8 @@ def batched_dist_mapsin_step(bnd: Bindings, pattern, local_keys,
     merge. With ``with_check`` returns ``(Bindings, bad)``."""
     q, cap, nv = bnd.table.shape
     plan = make_plan(pattern, bnd.vars)
-    flat = bnd.table.reshape(q * cap, nv)
-    lo, hi = probe_ranges(plan, flat)
-    v = bnd.valid.reshape(q * cap)
-    lo = torch.where(v, lo, 0)
-    hi = torch.where(v, hi, 0)
-    flt, msk = residual_values(plan, flat)
+    lo, hi, flt, msk = probe_inputs(plan, bnd.table.reshape(q * cap, nv),
+                                    bnd.valid.reshape(q * cap))
     out = dist_probe_batched(
         lo.reshape(q, cap), hi.reshape(q, cap), flt.reshape(q, cap, 3), msk,
         plan.eq_positions, local_keys, probe_cap, comm, impl,

@@ -78,6 +78,12 @@ def make_plan(pattern: Pattern, domain: Sequence[str]) -> PatternPlan:
                        tuple(out_vars), tuple(eq), is_scan=len(prefix) == 0)
 
 
+def by_index(pattern: Pattern, domain: Sequence[str], spo, ops):
+    """`spo` or `ops`, whichever belongs to the index ``make_plan(pattern,
+    domain)`` answers the pattern from: key tensors or region splits."""
+    return spo if make_plan(pattern, domain).index == SPO else ops
+
+
 def _resolve(source: Source, table: torch.Tensor) -> torch.Tensor:
     """table: (B, nv) int32 -> (B,) int64 values."""
     kind, v = source

@@ -84,10 +84,11 @@ import torch
 
 from repro_torch.core import mapsin as ms
 from repro_torch.core.bgp import (ExecConfig, a2a_step_payload_bytes,
-                                  apply_dist_step, execute_local)
+                                  apply_dist_step, execute_local, local_step)
 from repro_torch.core.distributed import a2a_leg_bytes
 from repro_torch.core.mapsin import Bindings, apply_residual, compact
-from repro_torch.core.plan import make_plan, probe_ranges, residual_values
+from repro_torch.core.plan import (by_index, make_plan, probe_ranges,
+                                   residual_values)
 from repro_torch.core.planner import (ENGINE_OPERATORS, Caps, PhysicalPlan,
                                       PlanStep, compile_plan, escalate_caps,
                                       quantize_cap)
@@ -813,22 +814,14 @@ class ServeEngine:
         scratch_vars = const_vars + first_plan.out_var_names
 
         def one(keys_spo, keys_ops, consts, s_table, s_valid, s_overflow):
-            keys_of = lambda pat, dom: (
-                keys_spo if make_plan(pat, dom).index == 0 else keys_ops)
-            bnd = _seed_scan(first, const_vars, keys_of(first, const_vars),
+            bnd = _seed_scan(first, const_vars,
+                             by_index(first, const_vars, keys_spo, keys_ops),
                              consts, steps[0].caps.out_cap, impl,
                              Bindings(scratch_vars, s_table, s_valid,
                                       s_overflow))
             ovfs = [bnd.overflow]
             for st in steps[1:]:
-                c = st.caps
-                keys = keys_of(st.patterns[0], bnd.vars)
-                if st.kind == "multiway":
-                    bnd = ms.multiway_step(bnd, st.patterns, keys,
-                                           c.row_cap, c.out_cap, impl)
-                else:
-                    bnd = ms.mapsin_step(bnd, st.patterns[0], keys,
-                                         c.probe_cap, c.out_cap, impl)
+                bnd = local_step(bnd, st, keys_spo, keys_ops, impl)
                 ovfs.append(bnd.overflow)
             # cumulative, per step
             return bnd.table, bnd.valid, bnd.overflow, torch.stack(ovfs)
@@ -881,21 +874,16 @@ class ServeEngine:
         def body(comm, consts):
             me = comm.index
             kspo, kops = keys_spo[me], keys_ops[me]
-            keys_of = lambda pat, dom: (
-                kspo if make_plan(pat, dom).index == 0 else kops)
-            splits_of = lambda pat, dom: (
-                splits_spo if make_plan(pat, dom).index == 0 else splits_ops)
             scr = self._scratch(scratch_vars, batch, out_cap)
-            bnd = Bindings(scratch_vars, *seed(keys_of(first, const_vars),
-                                               consts, scr.table, scr.valid,
-                                               scr.overflow))
+            bnd = Bindings(scratch_vars,
+                           *seed(by_index(first, const_vars, kspo, kops),
+                                 consts, scr.table, scr.valid, scr.overflow))
             ovfs = [bnd.overflow]
             bad = torch.zeros((), dtype=torch.int32, device=consts.device)
             for i, st in enumerate(eff_steps[1:]):
-                keys = keys_of(st.patterns[0], bnd.vars)
                 out = apply_dist_step(
-                    bnd, st, keys, splits_of(st.patterns[0], bnd.vars),
-                    cfg, comm, batched=True,
+                    bnd, st, kspo, kops, splits_spo, splits_ops, cfg, comm,
+                    batched=True,
                     fault=fsel[i] if fsel is not None else None,
                     with_check=with_check)
                 if with_check:

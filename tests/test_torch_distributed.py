@@ -535,23 +535,30 @@ def test_oracle_rows_at_generous_caps():
 @pytest.mark.gpu
 def test_kernel_mesh_matches_torch_mesh_on_the_card(lubm8):
     """Eight shards on one card: impl="kernel" equals impl="torch" on every
-    routing, and the searchsorted kernel is launched by the answer phase."""
+    routing, the searchsorted kernel is launched by the answer phase, and
+    the broadcast GET launches the probe_gather kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     store = build_store(lubm8["triples"], 8, device="cuda")
     mesh = LocalMesh(8, device="cuda")
+    broadcast_gets = 0
     for q in LUBM_QUERIES:
         pats = _pats(lubm8["qs"][q])
         for mode, routing in RUNS:
             out = {}
             for impl in ("kernel", "torch"):
                 before = ops.launches["searchsorted"]
+                gets0 = ops.launches["probe_gather"]
                 out[impl] = execute_sharded(
                     store, pats, mesh, mode,
                     ExecConfig(impl=impl, routing=routing),
                     caps=Caps(**LUBM_CAPS))
                 launched = ops.launches["searchsorted"] - before
+                gets = ops.launches["probe_gather"] - gets0
                 if impl == "torch":
-                    assert launched == 0
+                    assert launched == 0 and gets == 0
+                elif routing == "broadcast":
+                    broadcast_gets += gets
             for a, b in zip(out["kernel"][:3], out["torch"][:3]):
                 assert torch.equal(a, b), (q, mode, routing)
+    assert broadcast_gets > 0
