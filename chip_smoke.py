@@ -27,8 +27,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
                400: about 5.17 M triples), every LUBM query through
                parse_bgp -> compile_plan -> execute_local with
                impl="kernel" and impl="torch" (bit-identical, no
-               overflow), the kernels' launch counters checked, and each
-               kernel timed at the inputs the main path gives it;
+               overflow), the kernels' launch counters checked, each
+               query's all-reduce-side plan equal on both impls with
+               one sort_merge_compact launch a pattern, and each kernel
+               timed at the inputs the main path gives it; then Q8 of the
+               benchmark cell lubm63.adhoc on the cell's own data
+               (portbench's generator) and caps: its one reduce-side step
+               launches sort_merge_compact once, bit-identical to
+               impl="torch" with no overflow, the op timed at that step's
+               inputs beside their byte bound;
   5. engine serving — two tenants' batched ServeEngines (serve/engine.py)
                on the card: the main path's LUBM-like store and an
                SP2B-like one (sp2b_like(24000)), the serving bench's
@@ -66,7 +73,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
                execute_sharded, mapsin on routings a2a and broadcast x
                impl "kernel" and "torch" and the reduce-side baseline,
                each against execute_local on the main path's store (rows;
-               mapsin overflow 0; reduce overflow reported), per-query
+               mapsin overflow 0; reduce overflow reported; the reduce
+               run's sort_merge_compact launches, one a shard a
+               reduce-side pattern), per-query
                caps read off the plan's measured step sizes, wall ms,
                static payload bytes a shard, searchsorted launches and
                peak memory a query; searchsorted timed and held bit for
@@ -277,6 +286,12 @@ KERNELS = {
     "multiway_compact": dict(route="cuda",
                              source="src/repro_torch/csrc/probe_gather.cu",
                              replaces=None),
+    # the reduce-side join's merge after its sort (sort_merge_count_kernel,
+    # a scan, sort_merge_emit_kernel): replaces no TPU kernel, but
+    # sort_merge_join's (L, probe_cap) window grid and its compact
+    "sort_merge_compact": dict(route="cuda",
+                               source="src/repro_torch/csrc/probe_gather.cu",
+                               replaces=None),
     "flash_attention": dict(route="cuda",
                             source="src/repro_torch/csrc/flash_attention.cu",
                             replaces="src/repro/kernels/flash_attention.py:73"),
@@ -763,6 +778,59 @@ def fuzz_multiway_compact(torch, ops, rdf, seed: int) -> dict:
     return {"mismatches": mism, "max_abs_err": 0 if mism == 0 else None}
 
 
+# (extra_eq, r_out_cols) of a join on left column 0 = right column 1: no
+# further shared variable, one, and two (every right column then shared)
+SORT_MERGE_JOINS = (((), (0, 2)), (((1, 0),), (2,)), (((1, 0), (2, 2)), ()))
+
+
+def fuzz_sort_merge_compact(torch, ops, seed: int) -> dict:
+    """sort_merge_compact's kernels against its plain version, bit for bit:
+    20,000 left rows against 30,000 right rows of 3 int32 columns over 400
+    join keys (a tenth of the right rows on one key, past every cap:
+    missed), a fifth of each side invalid, the right side sorted as
+    sort_merge_join sorts it: probe caps from 3 to 1024, no, one and two
+    extra equalities, an out_cap that holds every match and one that
+    cuts; then sort_merge_join on both routes, `found` included."""
+    from repro_torch.core.reduce_side import sort_merge_join
+    g = torch.Generator(device="cuda").manual_seed(seed + 11)
+    ri = lambda hi, *shape: torch.randint(0, hi, shape, generator=g,
+                                          device="cuda", dtype=torch.int32)
+    l, m = 20000, 30000
+    lt, rt = ri(400, l, 3), ri(400, m, 3)
+    lt[:, 1:], rt[:, 0] = lt[:, 1:] % 7, rt[:, 0] % 7
+    rt[:, 2] %= 7
+    rt[: m // 10, 1] = 5                       # one key past every cap
+    lv = torch.rand(l, generator=g, device="cuda") < 0.8
+    rv = torch.rand(m, generator=g, device="cuda") < 0.8
+    rkey = torch.where(rv, rt[:, 1], 2 ** 31 - 1)
+    order = torch.argsort(rkey, stable=True)
+    right = (rkey[order], rt[order].contiguous(), rv[order])
+    mism = cases = 0
+    for cap in (3, 8, 33, 64, 128, 1024):
+        for extra_eq, r_out in SORT_MERGE_JOINS:
+            for out_cap in (1 << 22, 1000):
+                args = (*right, lt, lv, 0, extra_eq, r_out, cap, out_cap)
+                got = ops.sort_merge_compact(*args, impl="kernel")
+                want = ops.sort_merge_compact(*args, impl="torch")
+                cases += 1
+                mism += sum(int((x != y).sum()) for x, y in zip(got, want))
+                runs = []
+                for impl in ("kernel", "torch"):
+                    found = []
+                    out = sort_merge_join(lt, lv, rt, rv, 0, 1, list(extra_eq),
+                                          list(r_out), cap, out_cap, found,
+                                          impl)
+                    runs.append((out, [(int(o), n, c) for o, n, c in found]))
+                mism += sum(int((x != y).sum())
+                            for x, y in zip(runs[0][0], runs[1][0]))
+                mism += int(runs[0][1] != runs[1][1])
+    torch.cuda.synchronize()
+    log(f"[kernels] sort_merge_compact: {cases} cases (probe caps 3..1024, "
+        f"0-2 extra equalities, out_cap all or 1000), each also through "
+        f"sort_merge_join, L={l} M={m} mismatches={mism}")
+    return {"mismatches": mism, "max_abs_err": 0 if mism == 0 else None}
+
+
 def fuzz_flash_attention(torch, ops, seed: int) -> dict:
     """float32 and bfloat16; head dims 16..128; (h, g) of (4, 4), (8, 2),
     (32, 4), and at e 64 and 128 the LM families' (32, 8), (48, 8), (56, 8)
@@ -940,11 +1008,27 @@ def run_main_path(torch, args, failures: list) -> dict:
     if any(ops.launches.values()):
         failures.append(f"impl='torch' launched kernels: {ops.launches}")
 
-    # the paper's comparison: every join step on the reduce-side operator
+    # the paper's comparison: every join step on the reduce-side operator,
+    # one sort_merge_compact launch a pattern, equal to impl="torch"
     for name, rec in per_query.items():
         rplan = rplans[name]
         run = lambda: execute_local(store, rplan, "reduce", cfg=kern)
-        rec["ovf_reduce"] = int(run().overflow)
+        before = ops.launches["sort_merge_compact"]
+        rk = run()
+        torch.cuda.synchronize()
+        n = ops.launches["sort_merge_compact"] - before
+        want = sum(len(st.patterns) for st in rplan.steps
+                   if st.kind == "reduce_side")
+        if n != want:
+            failures.append(f"{name} reduce: {n} sort_merge_compact "
+                            f"launches, {want} reduce-side patterns")
+        rt = execute_local(store, rplan, "reduce", cfg=plain)
+        if not (torch.equal(rk.table, rt.table)
+                and torch.equal(rk.valid, rt.valid)
+                and torch.equal(rk.overflow, rt.overflow)):
+            failures.append(f"{name} reduce: impl='kernel' and impl='torch' "
+                            f"differ")
+        rec["ovf_reduce"] = int(rk.overflow)
         rec["ms_reduce"] = wall_ms(torch, run)
 
     log(f"{'query':6s} {'steps':34s} {'rows':>7s} {'kernel_ms':>10s} "
@@ -1163,6 +1247,137 @@ def time_kernels(torch, main: dict, fuzz: dict, floor) -> list:
             f"plain_ms={k['plain_ms']:.6f} bound_ms={k['bound_ms']:.6f} "
             f"library_ms={k['library_ms']}")
     return out
+
+
+# the benchmark cell whose Q8 joins `?x memberOf ?y` reduce-side: its
+# configuration (data) and traffic mix (caps), read from portbench/
+REDUCE_CELL = ("lubm63", "adhoc", "Q8")
+
+
+def check_reduce_side(torch, args, fuzz: dict, failures: list) -> dict:
+    """Q8 of the benchmark cell `lubm63.adhoc` on the card: the cell's own
+    data (portbench's LUBM generator at its configuration, links from the
+    seed) and caps, under which the planner joins `?x memberOf ?y`
+    reduce-side (probe_cap 1024, out_cap 2^20). Its run must launch
+    sort_merge_compact once, and equal impl="torch" bit for bit with no
+    overflow; both runs' wall ms and peak memory; then the op against its
+    plain version at the inputs that run gives it, both timed, beside the
+    bytes those inputs need. Returns the op's kernel record."""
+    from portbench.gen import lubm as lubm_gen
+    from repro_torch.core import (Caps, ExecConfig, build_store, compile_plan,
+                                  execute_local)
+    from repro_torch.core.rdf import Dictionary
+    from repro_torch.kernels import ops
+    from repro_torch.serve import parse_bgp
+
+    config_name, traffic, query = REDUCE_CELL
+    root = Path(__file__).resolve().parent / "portbench"
+    config = json.loads((root / "configs" / f"{config_name}.json").read_text())
+    mix = json.loads((root / "traffic" / f"{traffic}.json").read_text())
+    t0 = time.perf_counter()
+    graph = lubm_gen.generate(config, args.seed)
+    d = Dictionary()
+    for i, term in enumerate(graph.terms):
+        d.replay_term(i, term)
+    store = build_store(graph.triples, device="cuda")
+    torch.cuda.synchronize()
+    cell = f"{config_name}.{traffic} {query}"
+    log(f"[reduce] {config_name} (portbench's generator, seed {args.seed}): "
+        f"{len(graph.triples):,} triples, {len(graph.terms):,} terms, on "
+        f"the card in {time.perf_counter() - t0:.1f} s")
+    plan = compile_plan(store, list(parse_bgp(
+        config["adhoc_queries"][query], d).patterns), Caps(**mix["caps"]))
+    steps = [(st.kind, len(st.patterns), st.caps.probe_cap, st.caps.out_cap)
+             for st in plan.steps]
+    n_red = sum(n for kind, n, _, _ in steps if kind == "reduce_side")
+    if n_red != 1:
+        failures.append(f"{cell}: {n_red} reduce-side patterns in its plan "
+                        f"{steps}, want 1")
+    kern, plain = ExecConfig(impl="kernel"), ExecConfig(impl="torch")
+    runs = {}
+    for cfg in (kern, plain):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        before = ops.launches["sort_merge_compact"]
+        out = execute_local(store, plan, cfg=cfg)
+        torch.cuda.synchronize()
+        runs[cfg.impl] = dict(
+            out=out, peak=torch.cuda.max_memory_allocated() - resident,
+            launches=ops.launches["sort_merge_compact"] - before,
+            ms=wall_ms(torch, lambda c=cfg: execute_local(store, plan, cfg=c)))
+    bk, bt = runs["kernel"]["out"], runs["torch"]["out"]
+    same = (bk.vars == bt.vars and torch.equal(bk.table, bt.table)
+            and torch.equal(bk.valid, bt.valid)
+            and torch.equal(bk.overflow, bt.overflow)
+            and torch.equal(bk.step_overflow, bt.step_overflow))
+    if not same:
+        failures.append(f"{cell}: impl='kernel' and impl='torch' differ")
+    if int(bk.overflow):
+        failures.append(f"{cell}: overflow {int(bk.overflow)}")
+    if (runs["kernel"]["launches"], runs["torch"]["launches"]) != (n_red, 0):
+        failures.append(f"{cell}: sort_merge_compact launched "
+                        f"{runs['kernel']['launches']} times by the kernel "
+                        f"run and {runs['torch']['launches']} by the plain "
+                        f"one, want {n_red} and 0")
+    log(f"[reduce] {cell}: steps (kind, patterns, probe_cap, out_cap) "
+        f"{steps}; {int(bk.valid.sum())} rows, overflow "
+        f"{int(bk.overflow)}, kernel==torch {same}; wall ms kernel "
+        f"{runs['kernel']['ms']:.3f}, torch {runs['torch']['ms']:.3f}; peak "
+        f"bytes above the resident ones kernel {runs['kernel']['peak']}, torch "
+        f"{runs['torch']['peak']}; sort_merge_compact launches a run "
+        f"{runs['kernel']['launches']} / {runs['torch']['launches']}")
+
+    profile_query(torch, lambda: execute_local(store, plan, cfg=kern), cell)
+    x = first_call_args(ops, "sort_merge_compact",
+                        lambda: execute_local(store, plan, cfg=kern))
+    x = {k: v for k, v in x.items() if k != "impl"}
+    got = ops.sort_merge_compact(**x, impl="kernel")
+    want = ops.sort_merge_compact(**x, impl="torch")
+    err = int((got[0] - want[0]).abs().max())
+    mism = sum(int((a != b).sum()) for a, b in zip(got, want))
+    t_k = cuda_ms(torch, lambda: ops.sort_merge_compact(**x, impl="kernel"))
+    t_p = cuda_ms(torch, lambda: ops.sort_merge_compact(**x, impl="torch"),
+                  iters=3)
+    rks, lt, lv = x["rks"], x["lt"], x["lv"]
+    cap, out_cap = x["probe_cap"], x["out_cap"]
+    n_eq, n_out = len(x["extra_eq"]), len(x["r_out_cols"])
+    m, (l, nvl) = rks.numel(), lt.shape
+    key = lt[:, x["lkey_col"]][lv].contiguous()
+    n_in = (torch.searchsorted(rks, key, right=True)
+            - torch.searchsorted(rks, key)).clamp(max=cap)
+    live, windows = int((n_in > 0).sum()), int(n_in.sum())
+    total = int(got[3]) + out_cap
+    kept = min(total, out_cap)
+    w = nvl + n_out
+    # what this input needs: each left row's flag, each valid row's key and
+    # both searches, the live rows' columns and the flags and compared
+    # columns of their windows' rows, the kept matches' right columns, and
+    # the step's table and flags written once
+    depth = max(m, 1).bit_length()
+    nbytes = (l + key.numel() * (4 + 2 * depth * 4) + live * nvl * 4
+              + windows * (1 + 4 * n_eq) + kept * n_out * 4
+              + out_cap * (w * 4 + 1))
+    fz = fuzz.get("sort_merge_compact", {"mismatches": 0})
+    rec = dict(name="sort_merge_compact", **KERNELS["sort_merge_compact"],
+               launches=runs["kernel"]["launches"], max_abs_err=err,
+               mismatches=fz["mismatches"] + mism, ms=t_k, plain_ms=t_p,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               library_ms=None, q8_kernel_ms=runs["kernel"]["ms"],
+               q8_torch_ms=runs["torch"]["ms"],
+               q8_peak_bytes=runs["kernel"]["peak"],
+               q8_torch_peak_bytes=runs["torch"]["peak"],
+               shape=f"{cell}, reduce-side step: M={m} L={l} nvl={nvl} "
+                     f"probe_cap={cap} out_cap={out_cap} extra_eq={n_eq} "
+                     f"r_out={n_out} valid_left={key.numel()} "
+                     f"live_left={live} window_rows={windows} "
+                     f"matches={total}")
+    log(f"[timing] sort_merge_compact: {rec['shape']}: ms={t_k:.6f} "
+        f"plain_ms={t_p:.6f} bound_ms={rec['bound_ms']:.6f} "
+        f"mismatches={mism}")
+    del store
+    torch.cuda.empty_cache()
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -2208,9 +2423,10 @@ def run_distributed(torch, args, lubm: dict, floor, failures: list) -> dict:
             failures.append(f"dist: {name}: a2a and broadcast rows differ")
         rec["reduce_ms"] = wall_ms(torch, lambda: execute_sharded(
             store, pats, mesh, "reduce", kern, caps=rcaps), runs=1)
-        (t, v, o, vars_), _ = counted(
+        (t, v, o, vars_), n = counted(
             torch, ops, tally["a"], lambda: execute_sharded(
                 store, pats, mesh, "reduce", kern, caps=rcaps))
+        rec["smc"] = n["sort_merge_compact"]
         rec["reduce_ovf"] = int(o.sum())
         if rec["reduce_ovf"] == 0 and rows_canon(
                 torch, _bnd(t, v, vars_), wb.vars) != want:
@@ -2227,16 +2443,22 @@ def run_distributed(torch, args, lubm: dict, floor, failures: list) -> dict:
             if rec["pg_broadcast_kernel"] <= 0:
                 failures.append(f"dist: {name} broadcast: execute_sharded "
                                 f"never launched the probe_gather kernel")
+            if rec["smc"] <= 0 or rec["smc"] % S:
+                failures.append(f"dist: {name} reduce: {rec['smc']} "
+                                f"sort_merge_compact launches, not one a "
+                                f"shard a reduce-side pattern")
     t_a = time.perf_counter() - t_a
     tag = f"({card})"
     log(f"[dist] (a) execute_sharded, {len(per_query)} queries: "
         f"{t_a:.1f} s; a2a/broadcast ms: median of {DIST_RUNS} after a "
         f"warm-up; reduce ms: one run after a warm-up; ss/pg: searchsorted "
         f"launches of one checked a2a kernel run, probe_gather launches of "
-        f"one checked broadcast kernel run, each counted alone {tag}")
+        f"one checked broadcast kernel run, each counted alone; smc: "
+        f"sort_merge_compact launches of the checked reduce run {tag}")
     log(f"[dist] {'query':5s} {'steps':28s} {'rows':>6s} {'out_cap':>7s} "
         f"{'a2a_ms':>9s} {'bcast_ms':>9s} {'ratio':>6s} {'reduce_ms':>9s} "
-        f"{'a2a_B':>9s} {'bcast_B':>11s} {'ss/pg':>9s} {'peak_GiB':>8s}")
+        f"{'a2a_B':>9s} {'bcast_B':>11s} {'ss/pg':>9s} {'smc':>4s} "
+        f"{'peak_GiB':>8s}")
     for name, r in per_query.items():
         note = (f" reduce overflow {r['reduce_ovf']} (caps scan "
                 f"{r['rcaps'].scan_cap}, bucket {r['rcaps'].bucket_cap})"
@@ -2247,7 +2469,7 @@ def run_distributed(torch, args, lubm: dict, floor, failures: list) -> dict:
             f"{r['broadcast_ms'] / r['a2a_ms']:6.2f} {r['reduce_ms']:9.3f} "
             f"{r['a2a_payload']:9d} {r['broadcast_payload']:11d} "
             f"{r['ss_a2a_kernel']:4d}/{r['pg_broadcast_kernel']:<4d} "
-            f"{r['peak'] / 2 ** 30:8.3f} kernel==torch "
+            f"{r['smc']:4d} {r['peak'] / 2 ** 30:8.3f} kernel==torch "
             f"{r['a2a_same'] and r['broadcast_same']}; broadcast "
             f"reckoning {r['bcast_bytes'] / 2 ** 30:.3f} GiB{note} {tag}")
     log(f"[dist] execute_sharded: kernel launches of (a)'s checked runs "
@@ -5289,6 +5511,8 @@ def main() -> int:
         fuzz["probe_compact"] = fuzz_probe_compact(torch, ops, rdf, args.seed)
         fuzz["multiway_compact"] = fuzz_multiway_compact(torch, ops, rdf,
                                                          args.seed)
+        fuzz["sort_merge_compact"] = fuzz_sort_merge_compact(torch, ops,
+                                                             args.seed)
         fuzz["flash_attention"] = fuzz_flash_attention(torch, ops, args.seed)
         for k, rec in fuzz.items():
             if rec["mismatches"]:
@@ -5306,6 +5530,7 @@ def main() -> int:
         lubm = dict(store=main_run["store"], d=main_run["d"],
                     triples=main_run["triples"])
         kernels = time_kernels(torch, main_run, fuzz, floor)
+        kernels.append(check_reduce_side(torch, args, fuzz, failures))
         for k in kernels:
             if k["mismatches"]:
                 failures.append(f"{k['name']}: mismatches at the main "

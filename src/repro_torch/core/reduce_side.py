@@ -12,41 +12,34 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.distributed import repartition
-from repro_torch.core.mapsin import Bindings, compact, scan_pattern
+from repro_torch.core.mapsin import Bindings, scan_pattern
 from repro_torch.core.plan import make_plan
+from repro_torch.kernels import ops
 
 _INT32_MAX = 2 ** 31 - 1
 
 
 def sort_merge_join(lt, lv, rt, rv, lkey_col: int, rkey_col: int,
                     extra_eq: list[tuple[int, int]], r_out_cols: list[int],
-                    probe_cap: int, out_cap: int, found: list | None = None):
+                    probe_cap: int, out_cap: int, found: list | None = None,
+                    impl: str = "kernel"):
     """Local equi-join of two fixed-capacity row tables on one key column.
 
     Returns (table, valid, dropped) with columns = left cols + r_out_cols.
-    The sort is stable, so equal keys keep their row order.
+    The sort is stable, so equal keys keep their row order. The merge
+    after it is one ``ops.sort_merge_compact``: on the card, each left
+    row's matches counted, scanned and written, with no (L, probe_cap)
+    grid. When `found` is a list, it gets (over, L * probe_cap, out_cap)
+    appended, as ``compact`` (mapsin.py) appends it over that grid.
     """
-    dev = lt.device
     rkey = torch.where(rv, rt[:, rkey_col], _INT32_MAX)
     order = torch.argsort(rkey, stable=True)
     rks, rts, rvs = rkey[order], rt[order], rv[order]
-    lkey = lt[:, lkey_col].contiguous()
-    lo = torch.searchsorted(rks, lkey)
-    hi = torch.searchsorted(rks, lkey, right=True)
-    idx = lo[:, None] + torch.arange(probe_cap, device=dev)[None]
-    m = rks.shape[0]
-    take = idx.clamp(max=m - 1)
-    match = (idx < hi[:, None]) & lv[:, None] & rvs[take]
-    missed = (hi - lo - probe_cap).clamp(min=0)
-    rrows = rts[take]                                    # (L, cap, nvr)
-    for la, ra in extra_eq:
-        match = match & (lt[:, la][:, None] == rrows[..., ra])
-    lrows = lt[:, None, :].expand(lt.shape[0], probe_cap, lt.shape[1])
-    cols = [lrows] + [rrows[..., c][..., None] for c in r_out_cols]
-    rows = torch.cat(cols, dim=-1).reshape(lt.shape[0] * probe_cap, -1)
-    table, vmask, dropped = compact(rows, match.reshape(-1), out_cap,
-                                    found=found)
-    dropped = dropped + torch.where(lv, missed, 0).sum().to(torch.int32)
+    table, vmask, dropped, over = ops.sort_merge_compact(
+        rks, rts, rvs, lt, lv, lkey_col, extra_eq, r_out_cols, probe_cap,
+        out_cap, impl)
+    if found is not None:
+        found.append((over, lt.shape[0] * probe_cap, out_cap))
     return table, vmask, dropped
 
 
@@ -80,7 +73,8 @@ def dist_reduce_step(bnd: Bindings, pattern, local_keys, scan_cap: int,
                              bucket_cap, comm)
     # ---- reduce phase: local sort-merge join ----
     table, vmask, dropped = sort_merge_join(
-        lt, lv, rt, rv, lcol, rcol, extra_eq, r_out, probe_cap, out_cap)
+        lt, lv, rt, rv, lcol, rcol, extra_eq, r_out, probe_cap, out_cap,
+        impl=impl)
     overflow = bnd.overflow + rel.overflow + dl + dr + dropped
     return Bindings(new_vars, table, vmask, overflow)
 
@@ -90,10 +84,10 @@ def local_reduce_step(bnd: Bindings, pattern, keys, scan_cap: int,
                       impl: str = "kernel",
                       found: list | None = None) -> Bindings:
     """Single-shard reduce-side join (no shuffle — functional baseline).
-    `found` goes to the join's ``compact`` (mapsin.py)."""
+    `found` goes to ``sort_merge_join``."""
     rel = scan_pattern(pattern, keys, scan_cap, impl)
     lcol, rcol, extra_eq, r_out, new_vars = _join_columns(bnd, rel, pattern)
     table, vmask, dropped = sort_merge_join(
         bnd.table, bnd.valid, rel.table, rel.valid, lcol, rcol, extra_eq,
-        r_out, probe_cap, out_cap, found)
+        r_out, probe_cap, out_cap, found, impl)
     return Bindings(new_vars, table, vmask, bnd.overflow + rel.overflow + dropped)

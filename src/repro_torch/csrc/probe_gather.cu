@@ -63,6 +63,24 @@
 // values and in-range keys (read twice), and the step's table and
 // origins written once. Both passes take one row a thread and spend
 // warp-wide work only on the valid rows whose range holds a key.
+//
+// sort_merge_compact (sort_merge_count_kernel, a scan of the counts, then
+// sort_merge_emit_kernel) replaces no TPU kernel either: it is the reduce
+// phase's merge of the reduce-side join (core/reduce_side.py
+// `sort_merge_join`) after its sort. Each valid left row ranks its int32
+// join key in the sorted relation keys (lower and upper bound); its
+// window is the first probe_cap rows of that equal range, and its matches
+// are the window's valid rows that pass every extra equality of a left
+// column with a right column. The merge built them as an (L, probe_cap)
+// grid of gathered rows (2^30 slots at the main path's shapes) for a few
+// thousand matches. What bounds it on this card: bytes, a few MB: the L
+// left flags, the valid rows' keys and searches, their windows' flags and
+// compared columns (read twice, once a pass), the counts, and the step's
+// table written once. Both passes take one left row a thread and spend
+// warp-wide work only on the rows whose window holds a row, each such row
+// on a warp of its own: the live rows are compacted to the front of their
+// table, and a window is up to probe_cap rows long, so one warp working
+// through 32 neighbouring live rows in turn took most of the op's time.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -505,6 +523,265 @@ __global__ void multiway_emit_kernel(
   }
 }
 
+// sort_merge_compact's passes hand a block's rows to its warps: a block
+// is kSmBlock threads, one left row each, and each warp takes the
+// block's rows with window work in turn. The bindings a step joins are
+// compacted to the front of their table, so the live rows sit side by
+// side: one warp a row, not one warp for 32 of them.
+constexpr int kSmBlock = 1024;
+constexpr int kSmWarps = kSmBlock / 32;
+constexpr int kSmBatch = 4;           // window chunks of 32 loaded at once
+
+// Both ranks of x in sorted int32 keys: lo, the first key not below x,
+// and hi, the first key above it. The two searches step together, so
+// their loads overlap.
+__device__ __forceinline__ void equal_range32(const int32_t* __restrict__ keys,
+                                              int64_t m, int32_t x,
+                                              int64_t& lo, int64_t& hi) {
+  int64_t a = 0, na = m, b = 0, nb = m;
+  while (na > 0 || nb > 0) {
+    const int64_t ha = na >> 1;
+    const int64_t hb = nb >> 1;
+    const int32_t ka = na > 0 ? __ldg(keys + a + ha) : 0;
+    const int32_t kb = nb > 0 ? __ldg(keys + b + hb) : 0;
+    if (na > 0) {
+      if (ka < x) { a += ha + 1; na -= ha + 1; } else { na = ha; }
+    }
+    if (nb > 0) {
+      if (kb <= x) { b += hb + 1; nb -= hb + 1; } else { nb = hb; }
+    }
+  }
+  lo = a;
+  hi = b;
+}
+
+// Whether right row r is valid and holds the left values v at the n_eq
+// right columns packed eight bits each in eq_right. Every load is issued
+// whatever the others read, so they overlap.
+__device__ __forceinline__ bool right_ok(const int32_t* __restrict__ rts,
+                                         int nvr, const bool* __restrict__ rvs,
+                                         int64_t r, int n_eq, int eq_right,
+                                         int32_t v0, int32_t v1, int32_t v2) {
+  const int32_t* row = rts + r * nvr;
+  bool ok = rvs[r];
+  if (n_eq > 0) ok &= row[eq_right & 255] == v0;
+  if (n_eq > 1) ok &= row[(eq_right >> 8) & 255] == v1;
+  if (n_eq > 2) ok &= row[(eq_right >> 16) & 255] == v2;
+  return ok;
+}
+
+// The left values of row p at the n_eq columns packed in eq_left.
+__device__ __forceinline__ void left_values(const int32_t* __restrict__ lt,
+                                            int nvl, int64_t p, int n_eq,
+                                            int eq_left, int32_t& v0,
+                                            int32_t& v1, int32_t& v2) {
+  const int32_t* row = lt + p * nvl;
+  if (n_eq > 0) v0 = row[eq_left & 255];
+  if (n_eq > 1) v1 = row[(eq_left >> 8) & 255];
+  if (n_eq > 2) v2 = row[(eq_left >> 16) & 255];
+}
+
+// The block's threads whose `mine` is set, in thread order, into list;
+// returns their number. Every thread of the block calls it; it ends on a
+// barrier, so what the threads wrote to shared memory before it is seen.
+__device__ __forceinline__ int block_list(bool mine, int* list, int* base) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned hits = __ballot_sync(kAll, mine);
+  if (lane == 0) base[warp] = __popc(hits);
+  __syncthreads();
+  if (warp == 0) {                    // exclusive scan of the warps' counts
+    const int v = base[lane];
+    int incl = v;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kAll, incl, d);
+      if (lane >= d) incl += y;
+    }
+    base[lane] = incl - v;
+    if (lane == 31) base[32] = incl;
+  }
+  __syncthreads();
+  if (mine) list[base[warp] + __popc(hits & ((1u << lane) - 1))] = threadIdx.x;
+  __syncthreads();
+  return base[32];
+}
+
+// The sum of v over the warp's lanes.
+__device__ __forceinline__ int32_t warp_sum(int32_t v) {
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kAll, v, d);
+  return v;
+}
+
+// sort_merge_compact, pass 1 of 2. One thread per left row: it reads its
+// row's flag (coalesced) and, for a valid row, its key, both ranks of the
+// key in the sorted relation (lo, hi) and its left equality values. An
+// invalid row costs its flag and two stores. Then each warp takes the
+// block's rows whose window [lo, min(hi, lo + probe_cap)) holds a row, one
+// at a time, its lanes on neighbouring right rows, each counting its own.
+// Writes count[p] and missed[p] = max(hi - lo - probe_cap, 0) (cm is count
+// then missed, 2 l int32, scanned whole after), and the window's start
+// and length (win, 2 l int32) where count[p] > 0.
+__global__ void __launch_bounds__(kSmBlock) sort_merge_count_kernel(
+    const int32_t* __restrict__ rks, int64_t m, const int32_t* __restrict__ rts,
+    int nvr, const bool* __restrict__ rvs, const int32_t* __restrict__ lt,
+    int nvl, const bool* __restrict__ lv, int64_t l, int lkey_col,
+    int probe_cap, int n_eq, int eq_left, int eq_right,
+    int32_t* __restrict__ cm, int32_t* __restrict__ win) {
+  __shared__ int list[kSmBlock];
+  __shared__ int base[33];
+  __shared__ int32_t s_lo[kSmBlock], s_n[kSmBlock], s_cnt[kSmBlock];
+  __shared__ int32_t s_v[3][kSmBlock];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * kSmBlock + tid;
+  const bool in = p < l;
+  int64_t lo = 0;
+  int64_t hi = 0;
+  int32_t v0 = 0, v1 = 0, v2 = 0;
+  if (in && lv[p]) {
+    equal_range32(rks, m, lt[p * nvl + lkey_col], lo, hi);
+    if (lo < hi) left_values(lt, nvl, p, n_eq, eq_left, v0, v1, v2);
+  }
+  const int64_t n_in = hi - lo < probe_cap ? hi - lo : probe_cap;
+  s_lo[tid] = static_cast<int32_t>(lo);
+  s_n[tid] = static_cast<int32_t>(n_in);
+  s_cnt[tid] = 0;
+  s_v[0][tid] = v0;
+  s_v[1][tid] = v1;
+  s_v[2][tid] = v2;
+  const int n = block_list(n_in > 0, list, base);
+  for (int i = tid >> 5; i < n; i += kSmWarps) {
+    const int r = list[i];
+    const int64_t sr = s_lo[r];
+    const int32_t nr = s_n[r];
+    const int32_t g0 = s_v[0][r], g1 = s_v[1][r], g2 = s_v[2][r];
+    int32_t got = 0;
+#pragma unroll 4
+    for (int32_t c = lane; c < nr; c += 32) {   // sr + c < hi <= m
+      got += right_ok(rts, nvr, rvs, sr + c, n_eq, eq_right, g0, g1, g2);
+    }
+    got = warp_sum(got);
+    if (lane == 0) s_cnt[r] = got;
+  }
+  __syncthreads();
+  if (in) {
+    const int32_t mine = s_cnt[tid];
+    const int64_t over = hi - lo - probe_cap;
+    cm[p] = mine;
+    cm[l + p] = static_cast<int32_t>(over > 0 ? over : 0);
+    if (mine > 0) {
+      win[p] = static_cast<int32_t>(lo);
+      win[l + p] = static_cast<int32_t>(n_in);
+    }
+  }
+}
+
+// sort_merge_compact, pass 2 of 2, after the inclusive scan incl of cm
+// (count then missed), so that off = incl[p] - count[p], the matches are
+// incl[l - 1] and the missed rows incl[2 l - 1] - incl[l - 1]. Thread t
+// writes out row t's flag and element t of the table where it lies past
+// the kept rows (zero). Left row t with matches and off < out_cap goes to
+// its block's list; each warp takes the listed rows one at a time,
+// re-reads the row's window kSmBatch chunks of 32 at once, ranks the
+// passing right rows by ballot and popcount, and writes each kept match at
+// row off + rank: the left row's nvl columns, then the right row's n_out
+// columns packed eight bits each in r_out. No atomics: rows go in (left
+// row, window) order and the first out_cap are kept, as a cumulative count
+// over the grid keeps them.
+__global__ void __launch_bounds__(kSmBlock) sort_merge_emit_kernel(
+    const int32_t* __restrict__ rts, int nvr, const bool* __restrict__ rvs,
+    const int32_t* __restrict__ lt, int nvl, int64_t l,
+    const int32_t* __restrict__ cm, const int32_t* __restrict__ incl,
+    const int32_t* __restrict__ win, int out_cap, int n_eq, int eq_left,
+    int eq_right, int r_out, int n_out, int32_t* __restrict__ out,
+    bool* __restrict__ out_valid, int32_t* __restrict__ dropped,
+    int32_t* __restrict__ over) {
+  __shared__ int list[kSmBlock];
+  __shared__ int base[33];
+  __shared__ int32_t s_lo[kSmBlock], s_n[kSmBlock], s_off[kSmBlock],
+      s_lim[kSmBlock];
+  __shared__ int32_t s_v[3][kSmBlock];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kSmBlock + tid;
+  const int w = nvl + n_out;
+  const int32_t total = incl[l - 1];
+  const int64_t kept = total < out_cap ? total : out_cap;
+  if (t < out_cap) out_valid[t] = t < kept;
+  if (t >= kept * w && t < static_cast<int64_t>(out_cap) * w) out[t] = 0;
+  if (t == 0) {
+    // int32 sums that wrap as the plain version's int32 counts do
+    const uint32_t missed = static_cast<uint32_t>(incl[2 * l - 1]) -
+                            static_cast<uint32_t>(total);
+    const int32_t ov = total - out_cap;
+    over[0] = ov;
+    dropped[0] = static_cast<int32_t>(static_cast<uint32_t>(ov > 0 ? ov : 0) +
+                                      missed);
+  }
+  if (static_cast<int64_t>(blockIdx.x) * kSmBlock >= l) return;  // whole block
+  int32_t cnt = 0;
+  int32_t off = 0;
+  if (t < l) {
+    cnt = cm[t];
+    off = incl[t] - cnt;
+  }
+  const bool emit = cnt > 0 && off < out_cap;
+  if (emit) {
+    int32_t v0 = 0, v1 = 0, v2 = 0;
+    left_values(lt, nvl, t, n_eq, eq_left, v0, v1, v2);
+    s_lo[tid] = win[t];
+    s_n[tid] = win[l + t];
+    s_off[tid] = off;
+    s_lim[tid] = cnt < out_cap - off ? cnt : out_cap - off;
+    s_v[0][tid] = v0;
+    s_v[1][tid] = v1;
+    s_v[2][tid] = v2;
+  }
+  const int n = block_list(emit, list, base);
+  const unsigned below = (1u << lane) - 1;
+  const int c0q = r_out & 255, c1q = (r_out >> 8) & 255, c2q = (r_out >> 16) & 255;
+  for (int i = tid >> 5; i < n; i += kSmWarps) {
+    const int r = list[i];
+    const int64_t sr = s_lo[r];
+    const int32_t nr = s_n[r];
+    const int32_t limit = s_lim[r];
+    const int32_t g0 = s_v[0][r], g1 = s_v[1][r], g2 = s_v[2][r];
+    const int32_t* src = lt + (t - tid + r) * nvl;
+    int32_t* dst = out + static_cast<int64_t>(s_off[r]) * w;
+    int32_t done = 0;
+    for (int32_t c0 = 0; done < limit && c0 < nr; c0 += 32 * kSmBatch) {
+      bool ok[kSmBatch];
+      int32_t x0[kSmBatch], x1[kSmBatch], x2[kSmBatch];
+#pragma unroll
+      for (int k = 0; k < kSmBatch; ++k) {
+        const int32_t c = c0 + 32 * k + lane;
+        ok[k] = false;
+        x0[k] = x1[k] = x2[k] = 0;
+        if (c < nr) {                 // sr + c < hi <= m: in bounds
+          const int32_t* row = rts + (sr + c) * nvr;
+          ok[k] = right_ok(rts, nvr, rvs, sr + c, n_eq, eq_right, g0, g1, g2);
+          if (n_out > 0) x0[k] = row[c0q];
+          if (n_out > 1) x1[k] = row[c1q];
+          if (n_out > 2) x2[k] = row[c2q];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kSmBatch; ++k) {
+        const unsigned hits = __ballot_sync(kAll, ok[k]);
+        const int32_t rank = done + __popc(hits & below);
+        if (ok[k] && rank < limit) {
+          int32_t* row = dst + static_cast<int64_t>(rank) * w;
+          for (int q = 0; q < nvl; ++q) row[q] = src[q];
+          if (n_out > 0) row[nvl] = x0[k];
+          if (n_out > 1) row[nvl + 1] = x1[k];
+          if (n_out > 2) row[nvl + 2] = x2[k];
+        }
+        done += __popc(hits);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // flt_mask: bit p set = residual equality on index-order position p.
@@ -632,5 +909,52 @@ extern "C" int multiway_emit_i64(const void* keys, const void* start,
       static_cast<int32_t*>(out), static_cast<bool*>(out_valid),
       static_cast<int32_t*>(out_origin), static_cast<int32_t*>(dropped),
       static_cast<int32_t*>(over));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sort_merge_compact's passes over l left rows against m sorted right rows,
+// for the wrapper kernels/probe_gather.py `sort_merge_compact_cuda`, which
+// scans the counts between them. eq_left / eq_right: the columns of the
+// n_eq extra equalities, eight bits each; r_out: the n_out right columns
+// written after the left ones, eight bits each.
+extern "C" int sort_merge_count_i32(const void* rks, int64_t m,
+                                    const void* rts, int nvr, const void* rvs,
+                                    const void* lt, int nvl, const void* lv,
+                                    int64_t l, int lkey_col, int probe_cap,
+                                    int n_eq, int eq_left, int eq_right,
+                                    void* cm, void* win, void* stream) {
+  if (l <= 0) return 0;
+  const int64_t blocks = (l + kSmBlock - 1) / kSmBlock;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  sort_merge_count_kernel<<<static_cast<unsigned int>(blocks), kSmBlock, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(rks), m, static_cast<const int32_t*>(rts),
+      nvr, static_cast<const bool*>(rvs), static_cast<const int32_t*>(lt), nvl,
+      static_cast<const bool*>(lv), l, lkey_col, probe_cap, n_eq, eq_left,
+      eq_right, static_cast<int32_t*>(cm), static_cast<int32_t*>(win));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sort_merge_emit_i32(const void* rts, int nvr, const void* rvs,
+                                   const void* lt, int nvl, int64_t l,
+                                   const void* cm, const void* incl,
+                                   const void* win, int out_cap, int n_eq,
+                                   int eq_left, int eq_right, int r_out,
+                                   int n_out, void* out, void* out_valid,
+                                   void* dropped, void* over, void* stream) {
+  if (l <= 0) return 0;
+  int64_t span = static_cast<int64_t>(out_cap) * (nvl + n_out);
+  if (span < out_cap) span = out_cap;
+  if (span < l) span = l;
+  const int64_t blocks = (span + kSmBlock - 1) / kSmBlock;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  sort_merge_emit_kernel<<<static_cast<unsigned int>(blocks), kSmBlock, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(rts), nvr, static_cast<const bool*>(rvs),
+      static_cast<const int32_t*>(lt), nvl, l,
+      static_cast<const int32_t*>(cm), static_cast<const int32_t*>(incl),
+      static_cast<const int32_t*>(win), out_cap, n_eq, eq_left, eq_right,
+      r_out, n_out, static_cast<int32_t*>(out), static_cast<bool*>(out_valid),
+      static_cast<int32_t*>(dropped), static_cast<int32_t*>(over));
   return static_cast<int>(cudaGetLastError());
 }

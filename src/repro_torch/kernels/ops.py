@@ -11,9 +11,12 @@ The index kernels are ``torch.library`` custom ops,
 ``repro_torch::probe_compact`` (the GET and the MAPSIN merge in one: its
 two kernels and the scan between them, one launch in ``launches``) and
 ``repro_torch::multiway_compact`` (one star pattern's rows from the
-multiway row-GET's ranks, built the same way): the CPU implementation is
-the plain version and the CUDA one the kernel's launch.
-Each has a ``torch.func.vmap`` rule for the serving engine, which runs one
+multiway row-GET's ranks, built the same way) and
+``repro_torch::sort_merge_compact`` (the reduce-side join's merge after
+its sort, built the same way): the CPU implementation is the plain
+version and the CUDA one the kernel's launch.
+Each but sort_merge_compact (the serving engine runs no reduce-side
+step) has a ``torch.func.vmap`` rule for the serving engine, which runs one
 query's cascade under ``vmap`` for a whole batch of same-template queries:
 the store's keys are shared by every slot, so the rule folds the batch
 into the query dimension and launches once for the batch (``vmap_folds``
@@ -40,7 +43,8 @@ from repro_torch.kernels import searchsorted as _ss
 IMPLS = ("kernel", "torch")
 
 launches = {"searchsorted": 0, "probe_gather": 0, "probe_compact": 0,
-            "multiway_compact": 0, "flash_attention": 0}
+            "multiway_compact": 0, "sort_merge_compact": 0,
+            "flash_attention": 0}
 # flash_attention's launches by kernel: "wgmma" (tensor cores) or "simt"
 flash_attention_variants = {"wgmma": 0, "simt": 0}
 # calls of a vmap rule that folded a batch into one call of the op
@@ -356,6 +360,64 @@ def multiway_compact(keys: torch.Tensor, start: torch.Tensor,
         int(row_cap), int(out_cap), fmask, _pg.encode_masks(extra_mask, ())[0],
         eq_mask, list(new_pos))
     return tuple(o[0] for o in outs)
+
+
+# --- sort_merge_compact -----------------------------------------------------
+
+
+@torch.library.custom_op("repro_torch::sort_merge_compact", mutates_args=(),
+                         device_types="cpu")
+def _sort_merge_compact_op(rks: torch.Tensor, rts: torch.Tensor,
+                           rvs: torch.Tensor, lt: torch.Tensor,
+                           lv: torch.Tensor, lkey_col: int,
+                           eq_left: list[int], eq_right: list[int],
+                           r_out_cols: list[int], probe_cap: int,
+                           out_cap: int) -> tuple[torch.Tensor, torch.Tensor,
+                                                  torch.Tensor, torch.Tensor]:
+    return _pg.sort_merge_compact_plain(
+        rks, rts, rvs, lt, lv, lkey_col, tuple(zip(eq_left, eq_right)),
+        tuple(r_out_cols), probe_cap, out_cap)
+
+
+@_sort_merge_compact_op.register_kernel("cuda")
+def _sort_merge_compact_launch(rks, rts, rvs, lt, lv, lkey_col, eq_left,
+                               eq_right, r_out_cols, probe_cap, out_cap):
+    out = _pg.sort_merge_compact_cuda(
+        rks, rts, rvs, lt, lv, lkey_col, tuple(zip(eq_left, eq_right)),
+        tuple(r_out_cols), probe_cap, out_cap)
+    _count(launches, "sort_merge_compact", int(lv.numel() > 0))
+    return out
+
+
+@_sort_merge_compact_op.register_fake
+def _(rks, rts, rvs, lt, lv, lkey_col, eq_left, eq_right, r_out_cols,
+      probe_cap, out_cap):
+    return (lt.new_empty((out_cap, lt.shape[1] + len(r_out_cols))),
+            lv.new_empty((out_cap,)), lt.new_empty(()), lt.new_empty(()))
+
+
+def sort_merge_compact(rks: torch.Tensor, rts: torch.Tensor,
+                       rvs: torch.Tensor, lt: torch.Tensor, lv: torch.Tensor,
+                       lkey_col: int, extra_eq, r_out_cols, probe_cap: int,
+                       out_cap: int, impl: str = "kernel"):
+    """The reduce-side join's merge after its sort: left rows (lt (L, nvl)
+    int32, lv (L,)) against right rows (rts (M, nvr) int32, rvs (M,)) in
+    the order of their sorted int32 keys rks (M,), on the left column
+    `lkey_col` and the (left, right) column pairs `extra_eq`: (table
+    (out_cap, nvl + len(r_out_cols)) int32, valid (out_cap,) bool, dropped
+    () int32, over () int32), equal to the (L, probe_cap) window grid and
+    ``compact`` of ``sort_merge_compact_plain`` (kernels/probe_gather.py)."""
+    _check_impl(impl)
+    extra_eq, r_out_cols = tuple(extra_eq), tuple(r_out_cols)
+    if impl == "torch":
+        return _pg.sort_merge_compact_plain(rks, rts, rvs, lt, lv, lkey_col,
+                                            extra_eq, r_out_cols, probe_cap,
+                                            out_cap)
+    return _sort_merge_compact_op(
+        rks.contiguous(), rts.contiguous(), rvs.contiguous(), lt.contiguous(),
+        lv.contiguous(), int(lkey_col), [int(a) for a, _ in extra_eq],
+        [int(c) for _, c in extra_eq], [int(c) for c in r_out_cols],
+        int(probe_cap), int(out_cap))
 
 
 def _flash_attention_forward(q, k, v, causal, scale, impl):

@@ -34,6 +34,22 @@ fetched row is the rank range [start, end) of that binding, it returns
 what ``core/mapsin.py`` ``multiway_match`` makes of the gathered row,
 with no (R, row_cap) temporary on the card: the same count, scan and
 emit. Its plain version is that composition.
+
+``sort_merge_compact`` is the reduce phase's merge of the reduce-side
+join after its sort: for right rows (rts (M, nvr) int32, rvs (M,)) in
+the order of their sorted int32 join keys rks (M,) and left rows (lt (L,
+nvl) int32, lv (L,)), it returns
+  table   (out_cap, nvl + len(r_out_cols)) int32 — in (left row, window)
+          order: each valid left row's columns, then `r_out_cols` of one
+          valid right row among the first `probe_cap` whose key equals
+          the left row's at `lkey_col`, each `extra_eq` pair (left
+          column, right column) equal; zeros after the first `out_cap`;
+  valid   (out_cap,) bool; over () int32, the matches less out_cap;
+  dropped () int32, max(over, 0) plus each valid left row's equal keys
+          past probe_cap;
+what ``core/reduce_side.py`` ``sort_merge_join`` made of its (L,
+probe_cap) window grid and ``compact``, with no grid on the card: the
+same count, scan and emit. Its plain version is that grid.
 ``kernels/ops.py`` chooses between the versions.
 """
 from __future__ import annotations
@@ -332,3 +348,122 @@ def multiway_compact_cuda(keys: torch.Tensor, start: torch.Tensor,
         raise RuntimeError(f"multiway_compact kernel launch failed: CUDA "
                            f"error {rc}")
     return out, out_valid, dropped, over, out_origin
+
+
+def sort_merge_compact_plain(rks: torch.Tensor, rts: torch.Tensor,
+                             rvs: torch.Tensor, lt: torch.Tensor,
+                             lv: torch.Tensor, lkey_col: int,
+                             extra_eq: tuple, r_out_cols: tuple,
+                             probe_cap: int, out_cap: int):
+    """The plain version: each left row's window of `probe_cap` slots
+    into the sorted relation, the right rows gathered into the (L,
+    probe_cap) grid, then core/mapsin.py ``compact``. Returns (table,
+    valid, dropped, over) as described above."""
+    from repro_torch.core.mapsin import compact
+    dev = lt.device
+    lkey = lt[:, lkey_col].contiguous()
+    lo = torch.searchsorted(rks, lkey)
+    hi = torch.searchsorted(rks, lkey, right=True)
+    idx = lo[:, None] + torch.arange(probe_cap, device=dev)[None]
+    m = rks.shape[0]
+    take = idx.clamp(max=m - 1)
+    match = (idx < hi[:, None]) & lv[:, None] & rvs[take]
+    missed = (hi - lo - probe_cap).clamp(min=0)
+    rrows = rts[take]                                    # (L, cap, nvr)
+    for la, ra in extra_eq:
+        match = match & (lt[:, la][:, None] == rrows[..., ra])
+    lrows = lt[:, None, :].expand(lt.shape[0], probe_cap, lt.shape[1])
+    cols = [lrows] + [rrows[..., c][..., None] for c in r_out_cols]
+    rows = torch.cat(cols, dim=-1).reshape(lt.shape[0] * probe_cap,
+                                           lt.shape[1] + len(r_out_cols))
+    table, vmask, dropped = compact(rows, match.reshape(-1), out_cap)
+    dropped = dropped + torch.where(lv, missed, 0).sum().to(torch.int32)
+    over = match.sum(dtype=torch.int32) - out_cap
+    return table, vmask, dropped, over
+
+
+def _columns(cols, width: int, what: str) -> int:
+    """`cols` (at most 3, each below `width`) packed eight bits each."""
+    if len(cols) > 3 or any(not 0 <= c < width for c in cols):
+        raise ValueError(f"sort_merge_compact: bad {what} {tuple(cols)} "
+                         f"for {width} columns")
+    return sum(int(c) << (8 * i) for i, c in enumerate(cols))
+
+
+@functools.cache
+def _sort_merge_fns():
+    lib = _build.library("probe_gather")
+    count, emit = lib.sort_merge_count_i32, lib.sort_merge_emit_i32
+    p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    count.argtypes = [p, i64, p, i, p, p, i, p, i64, i, i, i, i, i, p, p, p]
+    emit.argtypes = [p, i, p, p, i, i64, p, p, p, i, i, i, i, i, i, p, p, p,
+                     p, p]
+    count.restype = emit.restype = ctypes.c_int
+    return count, emit
+
+
+def sort_merge_compact_cuda(rks: torch.Tensor, rts: torch.Tensor,
+                            rvs: torch.Tensor, lt: torch.Tensor,
+                            lv: torch.Tensor, lkey_col: int,
+                            extra_eq: tuple, r_out_cols: tuple,
+                            probe_cap: int, out_cap: int):
+    """Launch sort_merge_compact's kernels on the current stream. rks: (M,)
+    int32 sorted; rts: (M, nvr) int32; rvs: (M,) bool; lt: (L, nvl) int32;
+    lv: (L,) bool; all contiguous on one CUDA device, nvl and nvr below
+    256, at most 3 extra_eq pairs and 3 r_out_cols. Returns (table,
+    valid, dropped, over) as described above."""
+    check_tensor(rks, "rks", torch.int32, (None,))
+    dev = rks.device
+    m = rks.shape[0]
+    check_tensor(rts, "rts", torch.int32, (m, None), dev)
+    check_tensor(rvs, "rvs", torch.bool, (m,), dev)
+    check_tensor(lt, "lt", torch.int32, (None, None), dev)
+    l, nvl = lt.shape
+    check_tensor(lv, "lv", torch.bool, (l,), dev)
+    nvr = rts.shape[1]
+    probe_cap, out_cap = int(probe_cap), int(out_cap)
+    if not 1 <= probe_cap < 2 ** 31 or not 0 <= out_cap < 2 ** 31:
+        raise ValueError(f"sort_merge_compact: probe_cap must be in [1, "
+                         f"2^31) and out_cap in [0, 2^31), got {probe_cap} "
+                         f"and {out_cap}")
+    if l * probe_cap >= 2 ** 31 or m >= 2 ** 31 or max(nvl, nvr) > 255:
+        raise ValueError(f"sort_merge_compact: L * probe_cap and M must stay "
+                         f"below 2^31 and the widths below 256, got L={l}, "
+                         f"probe_cap={probe_cap}, M={m}, widths {nvl}, {nvr}")
+    if not 0 <= lkey_col < nvl:
+        raise ValueError(f"sort_merge_compact: bad key column {lkey_col}")
+    eq_left = _columns([a for a, _ in extra_eq], nvl, "extra_eq")
+    eq_right = _columns([c for _, c in extra_eq], nvr, "extra_eq")
+    r_out = _columns(r_out_cols, nvr, "r_out_cols")
+    w = nvl + len(r_out_cols)
+    out = torch.empty((out_cap, w), dtype=torch.int32, device=dev)
+    valid = torch.empty((out_cap,), dtype=torch.bool, device=dev)
+    dropped = torch.empty((), dtype=torch.int32, device=dev)
+    over = torch.empty((), dtype=torch.int32, device=dev)
+    if l == 0:
+        for x in (out, valid, dropped):
+            x.zero_()
+        over.fill_(-out_cap)
+        return out, valid, dropped, over
+    cm = torch.empty((2 * l,), dtype=torch.int32, device=dev)
+    win = torch.empty((2 * l,), dtype=torch.int32, device=dev)
+    count_fn, emit_fn = _sort_merge_fns()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = count_fn(rks.data_ptr(), m, rts.data_ptr(), nvr, rvs.data_ptr(),
+                      lt.data_ptr(), nvl, lv.data_ptr(), l, int(lkey_col),
+                      probe_cap, len(extra_eq), eq_left, eq_right,
+                      cm.data_ptr(), win.data_ptr(), stream)
+        if rc == 0:
+            # the counts, then the missed rows: one scan gives both sums
+            incl = torch.cumsum(cm, dim=0, dtype=torch.int32)
+            rc = emit_fn(rts.data_ptr(), nvr, rvs.data_ptr(), lt.data_ptr(),
+                         nvl, l, cm.data_ptr(), incl.data_ptr(),
+                         win.data_ptr(), out_cap, len(extra_eq), eq_left,
+                         eq_right, r_out, len(r_out_cols), out.data_ptr(),
+                         valid.data_ptr(), dropped.data_ptr(),
+                         over.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"sort_merge_compact kernel launch failed: CUDA "
+                           f"error {rc}")
+    return out, valid, dropped, over

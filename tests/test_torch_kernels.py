@@ -7,6 +7,7 @@ must be bit-identical. The CUDA kernels themselves run only on a card:
 their case is marked ``gpu`` and skips elsewhere."""
 import functools
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -14,16 +15,19 @@ import torch
 import jax.numpy as jnp
 
 import repro  # noqa: F401  (enables x64 for the reference)
+from repro.core import reduce_side as jrs
 from repro.core.mapsin import apply_residual as j_apply_residual
 from repro.core.mapsin import gather_range as j_gather_range
 from repro.core.rdf import BITS, MAX_ID, pack3
 from repro.kernels import ops as jops
 
+from repro_torch.core import reduce_side as trs
 from repro_torch.core.bgp import ExecConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.probe_gather import (multiway_compact_cuda,
                                               probe_compact_cuda,
-                                              probe_gather_cuda)
+                                              probe_gather_cuda,
+                                              sort_merge_compact_cuda)
 from repro_torch.kernels.searchsorted import searchsorted_cuda
 
 T = torch.as_tensor
@@ -598,3 +602,153 @@ def test_cuda_multiway_compact_matches_plain(row_cap):
         want = call("torch")(*(x[i] for x in slots))
         for g, w in zip(got, want):
             assert torch.equal(g[i], w)
+
+
+# --- sort_merge_compact: the reduce-side join's merge after its sort --------
+
+# (extra_eq, r_out_cols) of a join on left column 0 = right column 1: no
+# further shared variable, one, and two (every right column then shared)
+JOINS = [((), (0, 2)), (((1, 0),), (2,)), (((1, 0), (2, 2)), ())]
+
+
+def _join_inputs(seed=23, l=40, m=60, ids=6):
+    """Left (l, 3) and right (m, 3) int32 tables over few distinct values,
+    so keys repeat past small probe caps and the extra equalities match
+    often; about a fifth of the rows on each side invalid."""
+    rng = np.random.RandomState(seed)
+    lt = rng.randint(0, ids, (l, 3)).astype(np.int32)
+    rt = rng.randint(0, ids, (m, 3)).astype(np.int32)
+    return lt, rng.rand(l) < 0.8, rt, rng.rand(m) < 0.8
+
+
+def _sorted_right(rt, rv, rkey_col=1):
+    """The reduce phase's sort: keys of invalid rows set to INT32_MAX, a
+    stable argsort. Returns (rks, rts, rvs)."""
+    rkey = np.where(rv, rt[:, rkey_col], np.iinfo(np.int32).max)
+    order = np.argsort(rkey, kind="stable")
+    return rkey[order].astype(np.int32), rt[order], rv[order]
+
+
+def _merge_rows(rks, rts, rvs, lt, lv, extra_eq, r_out, probe_cap):
+    """The sort-merge written out row by row: each valid left row, then
+    each valid right row among the first `probe_cap` of its key's equal
+    range that passes the extra equalities. Returns (rows, missed)."""
+    rows, missed = [], 0
+    for i in np.nonzero(lv)[0]:
+        lo = np.searchsorted(rks, lt[i, 0], "left")
+        hi = np.searchsorted(rks, lt[i, 0], "right")
+        missed += max(hi - lo - probe_cap, 0)
+        for j in range(lo, min(hi, lo + probe_cap)):
+            if rvs[j] and all(lt[i, a] == rts[j, c] for a, c in extra_eq):
+                rows.append(list(lt[i]) + [rts[j, c] for c in r_out])
+    return rows, missed
+
+
+@pytest.mark.parametrize("out_cap", [4096, 4])
+@pytest.mark.parametrize("probe_cap", [3, 16])
+@pytest.mark.parametrize("join", range(len(JOINS)))
+def test_sort_merge_compact_plain_matches_reference(join, probe_cap, out_cap):
+    """Both routes of ``sort_merge_compact`` on the CPU (the plain version,
+    and the custom op whose CPU implementation it is) against the
+    sort-merge written out row by row, and ``sort_merge_join`` against the
+    JAX package's: no, one and two extra equalities, invalid rows on both
+    sides, key groups longer than probe_cap (missed), an out_cap cut,
+    `found`, `dropped` and `over`; no kernel launched."""
+    extra_eq, r_out = JOINS[join]
+    lt, lv, rt, rv = _join_inputs()
+    rks, rts, rvs = _sorted_right(rt, rv)
+    rows, missed = _merge_rows(rks, rts, rvs, lt, lv, extra_eq, r_out,
+                               probe_cap)
+    kept = min(len(rows), out_cap)
+    want = np.zeros((out_cap, 3 + len(r_out)), np.int32)
+    if kept:
+        want[:kept] = rows[:kept]
+    over = len(rows) - out_cap
+    ref = jax.jit(lambda a, b, c, d: jrs.sort_merge_join(
+        a, b, c, d, 0, 1, list(extra_eq), list(r_out), probe_cap,
+        out_cap))(*(jnp.asarray(x) for x in (lt, lv, rt, rv)))
+    before = dict(ops.launches)
+    for impl in ("torch", "kernel"):
+        got = ops.sort_merge_compact(T(rks), T(rts), T(rvs), T(lt), T(lv), 0,
+                                     extra_eq, r_out, probe_cap, out_cap,
+                                     impl)
+        assert [g.dtype for g in got] == [torch.int32, torch.bool,
+                                          torch.int32, torch.int32]
+        for g, w, what in zip(got, (want, np.arange(out_cap) < kept,
+                                    max(over, 0) + missed, over),
+                              ("table", "valid", "dropped", "over")):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                          err_msg=f"{impl} {what}")
+        found = []
+        table, valid, dropped = trs.sort_merge_join(
+            T(lt), T(lv), T(rt), T(rv), 0, 1, list(extra_eq), list(r_out),
+            probe_cap, out_cap, found, impl)
+        for g, w in zip((table, valid, dropped), ref):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        assert [(int(o), n, c) for o, n, c in found] == [
+            (over, lt.shape[0] * probe_cap, out_cap)]
+    assert ops.launches == before                # the CPU runs no kernel
+    assert rows and not lv.all() and not rvs.all()
+    assert (missed > 0) == (probe_cap == 3) and (over > 0) == (out_cap == 4)
+
+
+def test_sort_merge_compact_without_left_rows():
+    """No left row: nothing kept, nothing dropped, over -out_cap (no row
+    found) on both routes."""
+    _, _, rt, rv = _join_inputs()
+    lt = np.zeros((0, 3), np.int32)
+    for impl in ("torch", "kernel"):
+        got = ops.sort_merge_compact(*(T(x) for x in _sorted_right(rt, rv)),
+                                     T(lt), T(np.zeros(0, bool)), 0, (),
+                                     (0, 2), 4, 8, impl)
+        assert not got[0].any() and not got[1].any()
+        assert (int(got[2]), int(got[3])) == (0, -8)
+        found = []
+        trs.sort_merge_join(T(lt), T(np.zeros(0, bool)), T(rt), T(rv), 0, 1,
+                            [], [0, 2], 4, 8, found, impl)
+        assert [(int(o), n, c) for o, n, c in found] == [(-8, 0, 8)]
+
+
+def test_cuda_sort_merge_wrapper_rejects_host_tensors():
+    lt, lv, rt, rv = (T(x) for x in _join_inputs())
+    with pytest.raises(ValueError, match="CUDA"):
+        sort_merge_compact_cuda(rt[:, 1].contiguous(), rt, rv, lt, lv, 0, (),
+                                (0, 2), 4, 16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("probe_cap", [3, 33, 64, 1024])
+def test_cuda_sort_merge_compact_matches_plain(probe_cap):
+    """The CUDA kernels against the plain version, bit for bit: no, one and
+    two extra equalities, invalid rows on both sides, key groups longer
+    than probe_cap, an out_cap that cuts and one that does not, and
+    ``sort_merge_join`` on both routes with its `found`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    lt, lv, rt, rv = (T(x, device=dev)
+                      for x in _join_inputs(probe_cap, 3000, 5000, 40))
+    sorted_right = [T(x, device=dev) for x in _sorted_right(
+        *(x.cpu().numpy() for x in (rt, rv)))]
+    before = ops.launches["sort_merge_compact"]
+    calls = 0
+    for extra_eq, r_out in JOINS:
+        for out_cap in (1 << 16, 37):
+            args = (*sorted_right, lt, lv, 0, extra_eq, r_out, probe_cap,
+                    out_cap)
+            got = ops.sort_merge_compact(*args, "kernel")
+            want = ops.sort_merge_compact(*args, "torch")
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (extra_eq, out_cap)
+            runs = []
+            for impl in ("kernel", "torch"):
+                found = []
+                out = trs.sort_merge_join(lt, lv, rt, rv, 0, 1, list(extra_eq),
+                                          list(r_out), probe_cap, out_cap,
+                                          found, impl)
+                runs.append((out, [(int(o), n, c) for o, n, c in found]))
+            for g, w in zip(runs[0][0], runs[1][0]):
+                assert torch.equal(g, w)
+            assert runs[0][1] == runs[1][1]
+            calls += 2
+    assert ops.launches["sort_merge_compact"] - before == calls

@@ -257,6 +257,29 @@ def test_local_reduce_step(seed, pat, probe_cap, out_cap):
     _same(got, want)
 
 
+@pytest.mark.parametrize("impl", ["torch", "kernel"])
+@pytest.mark.parametrize("probe_cap,out_cap", [(8, 512), (2, 32)])
+def test_local_reduce_step_found(impl, probe_cap, out_cap):
+    """The reduce-side step on either route of its merge
+    (``ops.sort_merge_compact``), joined on two shared variables (one
+    extra equality): rows and overflow equal the reference's, and `found`
+    gets (over, L * probe_cap, out_cap), over + out_cap the matches before
+    the cut."""
+    _, ts, js = _stores(1)
+    first, pat = Pattern("?x", P + 1, "?y"), Pattern("?x", "?q", "?y")
+    tb = tms.scan_pattern(pattern_from(first), ts.flat_keys(0), 256)
+    index = tplan.make_plan(pattern_from(pat), ()).index
+    found = []
+    got = trs.local_reduce_step(tb, pattern_from(pat), ts.flat_keys(index),
+                                512, probe_cap, out_cap, impl, found)
+    jb = _jit(jms.scan_pattern, (0, 2))(first, js.flat_keys(0), 256)
+    _same(got, _jit(jrs.local_reduce_step, (1, 3, 4, 5))(
+        jb, pat, js.flat_keys(index), 512, probe_cap, out_cap))
+    (over, slots, cut), = found
+    assert (slots, cut) == (tb.capacity * probe_cap, out_cap)
+    assert int(got.valid.sum()) == min(int(over) + out_cap, out_cap) > 0
+
+
 def test_sort_merge_join_is_stable():
     """Equal join keys keep their row order (jnp.argsort is stable)."""
     lt = np.array([[1, 0], [2, 0]], np.int32)
